@@ -1,0 +1,591 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds each one to its plain PyTorch version on the card at the shapes the
+main path gives it (exact integer equality), drives the main path —
+``repro_torch.hybrid_sort`` at its default engine, which must resolve to the
+kernels — on realistic key sets (2^28 uint32 keys alone and with values,
+skewed keys, float and int64 keys), checks every result byte for byte
+against ``torch.sort(stable=True)`` of the ordered-bits carrier, checks the
+launch census, and times the sort beside ``torch.sort``.
+
+Every phase prints one JSON line.  The line before the last two lists the
+kernels (launches on the main path, time, bound, plain version's time:
+``{"kernels": [...]}``); the next is the card's name and power limit from
+``nvidia-smi``; the last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
+last line.  Without a GPU, or without the repository's ``src/`` beside it,
+the script exits non-zero and prints no result.
+
+``--log2n`` shrinks the main sizes (a quick check); ``--reps`` sets the
+timed repetitions.  Neither is needed for the full run.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+#: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
+HBM_BYTES_PER_S = 3.35e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+class Failure(Exception):
+    pass
+
+
+def need(cond, what) -> None:
+    if not cond:
+        raise Failure(what)
+
+
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def cuda_ms(torch, fn, reps, setup=None) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events), after
+    one warm-up; ``setup`` runs untimed before each."""
+    times = []
+    for i in range(reps + 1):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_err(torch, pairs) -> int:
+    """Largest |kernel - plain| over integer tensors (0 = equal)."""
+    worst = 0
+    for a, b in pairs:
+        need(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if a.numel():
+            diff = (a.to(torch.int64) - b.to(torch.int64)).abs().max()
+            worst = max(worst, int(diff))
+    return worst
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise Failure(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def environment(torch):
+    try:
+        import triton
+        triton_version = triton.__version__
+    except ImportError as exc:
+        triton_version = f"not importable ({exc})"
+    from repro_torch.kernels import _build
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()
+    emit({"phase": "environment", "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nvcc": nvcc[-1] if nvcc else None, "triton": triton_version,
+          "device": torch.cuda.get_device_name(0),
+          "capability": list(torch.cuda.get_device_capability(0)),
+          "nvidia_smi": nvidia_smi_line()})
+
+
+def build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    seconds = time.perf_counter() - t0
+    usage = {name: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                    if "Used" in ln] for name, log in reports.items()}
+    emit({"phase": "build", "seconds": round(seconds, 3),
+          "dir": os.path.relpath(str(_build.build_dir()), HERE),
+          "ptxas": usage})
+
+
+# --------------------------------------------------------------------------
+# capture: the kernels' arguments on a real run of the main path
+# --------------------------------------------------------------------------
+
+def capture(torch, keys, values, passes=2):
+    """Run ``hybrid_sort`` once, recording clones of the arguments of its
+    first ``passes`` fused passes, of its merge_rows calls and of its
+    local-sort launches (the buffer before the first class, then the class
+    tables).  The recording run is not the counted main-path run."""
+    from repro_torch.core import plan
+    from repro_torch.kernels import fused, ops
+    from repro_torch import hybrid_sort
+    rec = {"passes": [], "merge": [], "classes": [], "buf": None}
+    orig_pass = fused.fused_counting_pass
+    orig_merge = plan.merge_rows
+    orig_seg = ops.sort_segments_stable
+
+    def pass_hook(src_keys, src_vals, alt_keys, alt_vals, sc, *tables,
+                  **kw):
+        if len(rec["passes"]) < passes:
+            rec["passes"].append(dict(
+                src_keys=src_keys.clone(),
+                src_vals=tuple(v.clone() for v in src_vals),
+                sc=tuple(sc), tables=tuple(t.clone() for t in tables),
+                kw=dict(kw)))
+        return orig_pass(src_keys, src_vals, alt_keys, alt_vals, sc,
+                         *tables, **kw)
+
+    def merge_hook(hist, lt, mt):
+        if len(rec["merge"]) < passes:
+            rec["merge"].append((hist.clone(), lt, mt))
+        return orig_merge(hist, lt, mt)
+
+    def seg_hook(buf, perm, starts, sizes, length):
+        if rec["buf"] is None:
+            rec["buf"] = buf.clone()
+            rec["with_perm"] = perm is not None
+        rec["classes"].append((starts.clone(), sizes.clone(), length))
+        return orig_seg(buf, perm, starts, sizes, length)
+
+    fused.fused_counting_pass = pass_hook
+    plan.merge_rows = merge_hook
+    ops.sort_segments_stable = seg_hook
+    try:
+        hybrid_sort(keys, values)
+    finally:
+        fused.fused_counting_pass = orig_pass
+        plan.merge_rows = orig_merge
+        ops.sort_segments_stable = orig_seg
+    torch.cuda.synchronize()
+    return rec
+
+
+# --------------------------------------------------------------------------
+# phase 3: every kernel against its plain version, at main-path shapes
+# --------------------------------------------------------------------------
+
+def check_histogram(torch, keys_u32, kpb, reps):
+    """The prologue histogram (whole-array total) and the (T, r) row
+    contract, on uniform and on all-equal keys (the skew worst case)."""
+    from repro_torch.core import bijection
+    from repro_torch.kernels import fused, histogram, ref
+    carrier = bijection.to_ordered_bits(keys_u32)
+    n = carrier.shape[0]
+    (ck, _), _ = fused.make_ping_pong(carrier, (), kpb)
+    out = {}
+    for label, buf in (("uniform", ck), ("all_equal", torch.full_like(ck, 7))):
+        got = histogram.digit_total(buf, n, 24, 8)
+        want = ref.radix_histogram_ref(buf[:n].reshape(1, -1), 24, 8)[0]
+        tiles = buf.reshape(-1, kpb)
+        err = max_abs_err(torch, [
+            (got, want), (histogram.radix_histogram(tiles, 24, 8),
+                          ref.radix_histogram_ref(tiles, 24, 8))])
+        need(err == 0, f"histogram ({label}) != plain")
+        ms = cuda_ms(torch, lambda: histogram.digit_total(buf, n, 24, 8), reps)
+        plain = cuda_ms(torch, lambda: ref.radix_histogram_ref(
+            buf[:n].reshape(1, -1), 24, 8), max(1, reps // 2))
+        out[label] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
+                          bound_ms=bound_ms(n * 4 + 256 * 4))
+        emit({"phase": "kernel_check", "kernel": "histogram", "keys": label,
+              "n": n, "equal": True, **out[label]})
+    return out
+
+
+def _pass_bytes(rec, n, lookahead):
+    kb = rec["src_keys"].element_size()
+    vb = sum(v.element_size() for v in rec["src_vals"])
+    a_max, r = rec["kw"]["a_max"], rec["kw"]["r"]
+    g = rec["tables"][0].numel()
+    tables = 5 * g * 4 + 2 * a_max * r * 4
+    return 2 * n * (kb + vb) + tables + a_max * r * 4 * (2 if lookahead else 1)
+
+
+def check_fused(torch, rec, n, label, reps):
+    from repro_torch.kernels import fused, ref
+    kw = rec["kw"]
+
+    def run(fn, dev):
+        keys = rec["src_keys"].to(dev)
+        vals = tuple(v.to(dev) for v in rec["src_vals"])
+        alt_k = torch.full_like(keys, -1)
+        alt_v = tuple(torch.zeros_like(v) for v in vals)
+        tables = tuple(t.to(dev) for t in rec["tables"])
+        return fn(keys, vals, alt_k, alt_v, rec["sc"], *tables, **kw)
+
+    dev = rec["src_keys"].device
+    got = run(fused.fused_counting_pass, dev)
+    want = run(ref.fused_counting_pass_ref, dev)
+    pairs = [(got[0][:n], want[0][:n])]
+    pairs += [(a[:n], b[:n]) for a, b in zip(got[1], want[1])]
+    pairs += list(zip(got[2:], want[2:]))
+    err = max_abs_err(torch, pairs)
+    need(err == 0, f"fused pass ({label}) != plain")
+    keys, vals = rec["src_keys"], rec["src_vals"]
+    alt_k = torch.empty_like(keys)
+    alt_v = tuple(torch.empty_like(v) for v in vals)
+    ms = cuda_ms(torch, lambda: fused.fused_counting_pass(
+        keys, vals, alt_k, alt_v, rec["sc"], *rec["tables"], **kw), reps)
+    plain = cuda_ms(torch, lambda: ref.fused_counting_pass_ref(
+        keys, vals, alt_k, alt_v, rec["sc"], *rec["tables"], **kw),
+        max(1, reps // 2))
+    live_rows = int((rec["tables"][3] > 0).sum())
+    res = dict(ms=ms, plain_ms=plain, max_abs_err=err,
+               bound_ms=bound_ms(_pass_bytes(rec, n,
+                                             kw.get("lookahead", False))),
+               rows=rec["tables"][0].numel(), live_rows=live_rows)
+    emit({"phase": "kernel_check", "kernel": "fused_pass", "pass": label,
+          "n": n, "values": len(vals), "lookahead": kw.get("lookahead"),
+          "equal": True, **res})
+    return res
+
+
+def check_merge_rows(torch, rec, reps):
+    from repro_torch.core import plan
+    from repro_torch.kernels import ref
+    hist, lt, mt = rec
+    got = plan.merge_rows(hist, lt, mt)
+    want = ref.merge_rows_ref(hist, lt, mt)
+    err = max_abs_err(torch, list(zip(got, want)))
+    need(err == 0, "merge_rows != plain")
+    ms = cuda_ms(torch, lambda: plan.merge_rows(hist, lt, mt), reps)
+    plain = cuda_ms(torch, lambda: ref.merge_rows_ref(hist, lt, mt), 1)
+    res = dict(ms=ms, plain_ms=plain, max_abs_err=err,
+               bound_ms=bound_ms(hist.numel() * 6), rows=hist.shape[0])
+    emit({"phase": "kernel_check", "kernel": "merge_rows", "equal": True,
+          **res})
+    return res
+
+
+def check_local_sort(torch, rec, reps):
+    from repro_torch.kernels import bitonic, ref
+    buf_k = rec["buf"].clone()
+    buf_p = rec["buf"].clone()
+    n = buf_k.shape[0]
+    with_perm = rec["with_perm"]
+    dev = buf_k.device
+    perm_k = torch.arange(n, dtype=torch.int32, device=dev) if with_perm else None
+    perm_p = perm_k.clone() if with_perm else None
+    total_ms = total_plain = total_bound = 0.0
+    err = 0
+    for starts, sizes, length in rec["classes"]:
+        live = int((sizes > 0).sum())
+        keys_live = int(sizes.sum())
+        bitonic.sort_segments_stable(buf_k, perm_k, starts, sizes, length)
+        ref.sort_segments_ref(buf_p, perm_p, starts, sizes, length)
+        pairs = [(buf_k, buf_p)] + ([(perm_k, perm_p)] if with_perm else [])
+        e = max_abs_err(torch, pairs)
+        need(e == 0, f"local sort class L={length} != plain")
+        err = max(err, e)
+        scratch = rec["buf"].clone()
+        sp = torch.arange(n, dtype=torch.int32, device=dev) if with_perm else None
+        ms = cuda_ms(torch, lambda: bitonic.sort_segments_stable(
+            scratch, sp, starts, sizes, length), reps,
+            setup=lambda: scratch.copy_(rec["buf"]))
+        plain = cuda_ms(torch, lambda: ref.sort_segments_ref(
+            scratch, sp, starts, sizes, length), 1,
+            setup=lambda: scratch.copy_(rec["buf"]))
+        kb = buf_k.element_size()
+        nbytes = keys_live * (2 * kb + (4 if with_perm else 0)) + \
+            starts.numel() * 8
+        total_ms += ms
+        total_plain += plain
+        total_bound += bound_ms(nbytes)
+        emit({"phase": "kernel_check", "kernel": "local_sort", "L": length,
+              "rows": starts.numel(), "live_rows": live, "keys": keys_live,
+              "equal": True, "ms": ms, "plain_ms": plain,
+              "bound_ms": bound_ms(nbytes)})
+    # the (S, L) table contract at the widest class shape
+    length = rec["classes"][-1][2]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    keys = torch.randint(-2**31, 2**31 - 1, (64, length), generator=gen,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    idx = torch.arange(64 * length, dtype=torch.int32, device=dev).reshape(
+        64, length)
+    got = bitonic.bitonic_sort_rows_stable(keys, idx)
+    want = ref.bitonic_sort_rows_stable_ref(keys, idx)
+    e = max_abs_err(torch, list(zip(got, want)))
+    need(e == 0, "bitonic_sort_rows_stable != plain")
+    emit({"phase": "kernel_check", "kernel": "local_sort_rows",
+          "shape": [64, length], "equal": True})
+    return dict(ms=total_ms, plain_ms=total_plain, bound_ms=total_bound,
+                max_abs_err=max(err, e))
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path
+# --------------------------------------------------------------------------
+
+def reference_sort(torch, keys):
+    """Keys and stable source indices of ``torch.sort(stable=True)`` over the
+    ordered-bits carrier (totalOrder for floats), mapped back."""
+    from repro_torch.core import bijection
+    carrier = bijection.to_ordered_bits(keys)
+    s = torch.sort(bijection.sortable(carrier), stable=True)
+    return (bijection.from_ordered_bits(bijection.sortable(s.values),
+                                        keys.dtype), s.indices)
+
+
+def same_bits(torch, a, b) -> bool:
+    from repro_torch.core import bijection
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return bool(torch.equal(bijection.to_ordered_bits(a),
+                            bijection.to_ordered_bits(b)))
+
+
+def main_case(torch, label, keys, with_values, reps):
+    from repro_torch import hybrid_sort
+    from repro_torch.core import bijection, hybrid, model
+    from repro_torch.core.ranks import resolve_engine
+    from repro_torch.kernels import COUNTS, reset_counts, fused
+    n = keys.shape[0]
+    need(resolve_engine(None, keys.device) == "kernel",
+         "auto engine did not resolve to the kernels on CUDA")
+    values = (torch.arange(n, dtype=torch.int32, device=keys.device)
+              if with_values else None)
+    kb = keys.element_size()
+    cfg = model.default_config(kb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    if with_values:
+        out_k, out_v, stats = hybrid_sort(keys, values, return_stats=True)
+    else:
+        out_k, stats = hybrid_sort(keys, return_stats=True)
+    torch.cuda.synchronize()
+    counts = dict(COUNTS)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    ref_k, ref_i = reference_sort(torch, keys)
+    need(same_bits(torch, out_k, ref_k), f"{label}: keys differ from torch.sort")
+    if with_values:
+        need(torch.equal(out_v.to(torch.int64), ref_i),
+             f"{label}: values differ from torch.sort(stable=True) indices")
+    del ref_k, ref_i
+    classes = len(hybrid.local_sort_classes(n, cfg))
+    need(counts["histogram"] == 1, f"{label}: histogram launches "
+         f"{counts['histogram']} != 1")
+    need(counts["fused_pass"] == stats.counting_passes,
+         f"{label}: fused launches {counts['fused_pass']} != "
+         f"{stats.counting_passes} executed passes")
+    need(counts["local_sort"] <= classes,
+         f"{label}: local-sort launches {counts['local_sort']} > {classes}")
+    # the yardstick: torch.sort (CUB's radix sort on CUDA) of the same keys;
+    # unsigned keys go as their signed view (torch.sort has no uint32), which
+    # moves the same bytes through the same number of radix passes
+    lib_keys = (keys.view(bijection.carrier_dtype(keys.dtype))
+                if keys.dtype in (torch.uint32, torch.uint64) else keys)
+    if with_values:
+        ms = cuda_ms(torch, lambda: hybrid_sort(keys, values), reps)
+        lib = cuda_ms(torch, lambda: torch.sort(lib_keys, stable=True), reps)
+    else:
+        ms = cuda_ms(torch, lambda: hybrid_sort(keys), reps)
+        lib = cuda_ms(torch, lambda: torch.sort(lib_keys), reps)
+    p = stats.counting_passes
+    n_pad = fused.pad_length(n, cfg.kpb)
+    vb = 4 if with_values else 0
+    model_bytes = ((2 * p + 1) * n_pad * kb + 2 * p * n_pad * vb +
+                   (2 * n * (kb + vb) if stats.used_local_sort else 0))
+    res = {"phase": "main_path", "case": label, "n": n,
+           "dtype": str(keys.dtype).replace("torch.", ""),
+           "values": with_values, "engine": "kernel", "equal": True,
+           "stats": stats._asdict(), "launches": counts,
+           "local_sort_classes": classes, "ms": ms, "torch_sort_ms": lib,
+           "byte_model": model_bytes, "byte_model_bound_ms":
+           bound_ms(model_bytes), "peak_mem_bytes": peak}
+    emit(res)
+    return res
+
+
+def profile_case(torch, keys, with_values):
+    """Where the time of one sort goes: ``torch.profiler`` over one run
+    (after a warm-up), device time by kernel/op name, and the device's busy
+    share of the run's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import hybrid_sort
+    values = (torch.arange(keys.shape[0], dtype=torch.int32,
+                           device=keys.device) if with_values else None)
+    hybrid_sort(keys, values)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        hybrid_sort(keys, values)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        # device-side entries only (kernels, memsets, copies): a CPU op's
+        # device time is the sum of its kernels, which are listed as well
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    emit({"phase": "profile", "n": keys.shape[0], "values": with_values,
+          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": (1 - busy_ms / wall_ms) if rows else None,
+          "top": [{"name": name[:80], "calls": count, "device_ms": ms}
+                  for ms, count, name in rows[:15]]})
+
+
+def make_cases(torch, np, log2n, dev):
+    """(label, keys tensor, with_values) for the main path, from seeds."""
+    rng = np.random.default_rng(2016)
+    big = 1 << log2n
+    mid = 1 << max(log2n - 2, 10)
+    small = 1 << max(log2n - 3, 10)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    uni = rng.integers(0, 2**32, big, dtype=np.uint32)
+    yield "uint32_uniform", put(uni), False
+    yield "uint32_uniform_kv", put(uni), True
+    del uni
+    zipf = np.minimum(rng.zipf(1.5, mid), 2**32 - 1).astype(np.uint32)
+    yield "uint32_zipf1.5", put(zipf), False
+    del zipf
+    ent = rng.integers(0, 2**32, big, dtype=np.uint32)
+    for _ in range(3):
+        ent &= rng.integers(0, 2**32, big, dtype=np.uint32)
+    yield "uint32_and3", put(ent), False
+    del ent
+    f = (rng.standard_normal(mid) * 1e3).astype(np.float32)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf], np.float32)
+    nans = np.array([0x7fc00000, 0xffc00000, 0x7f800001, 0xff800123],
+                    np.uint32).view(np.float32)
+    at = rng.choice(mid, 4096, replace=False)
+    f[at] = np.resize(np.concatenate([specials, nans]), 4096)
+    yield "float32_specials", put(f), True
+    del f
+    i64 = rng.integers(-2**63, 2**63 - 1, small, dtype=np.int64)
+    yield "int64_uniform", put(i64), False
+
+
+def run(args) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import numpy as np
+    import repro_torch  # noqa: F401  (fails without the repository's src/)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    environment(torch)
+    build()
+
+    # phase 3: kernels against their plain versions at main-path shapes
+    n = 1 << args.log2n
+    rng = np.random.default_rng(11)
+    keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
+    hist = check_histogram(torch, keys, 6912, args.reps)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    rec_kv = capture(torch, keys, vals)
+    fused_res = [check_fused(torch, r, n, f"kv_pass{i}", args.reps)
+                 for i, r in enumerate(rec_kv["passes"])]
+    merge_res = check_merge_rows(torch, rec_kv["merge"][0], args.reps)
+    local_res = check_local_sort(torch, rec_kv, args.reps)
+    del rec_kv
+    rec_k = capture(torch, keys, None)
+    for i, r in enumerate(rec_k["passes"]):
+        check_fused(torch, r, n, f"keys_pass{i}", args.reps)
+        plain = dict(r, kw=dict(r["kw"], lookahead=False))
+        check_fused(torch, plain, n, f"keys_pass{i}_no_lookahead", 1)
+    del rec_k, keys, vals
+    torch.cuda.empty_cache()
+
+    # phase 4: the main path, counted
+    cases = []
+    for label, k, with_values in make_cases(torch, np, args.log2n, dev):
+        cases.append(main_case(torch, label, k, with_values, args.reps))
+        del k
+        torch.cuda.empty_cache()
+    main = next(c for c in cases if c["case"] == "uint32_uniform_kv")
+    prof_keys = torch.from_numpy(np.random.default_rng(2016).integers(
+        0, 2**32, n, dtype=np.uint32)).to(dev)
+    profile_case(torch, prof_keys, True)
+    del prof_keys
+    launches = main["launches"]
+    need(all(launches[k] > 0 for k in ("histogram", "fused_pass",
+                                       "local_sort", "merge_rows")),
+         f"a kernel of the main path was not launched: {launches}")
+
+    src = "src/repro_torch/kernels/csrc/"
+    kernels = [
+        dict(name="histogram", route="cuda", source=src + "histogram.cu",
+             replaces="src/repro/kernels/histogram.py:28",
+             launches=launches["histogram"], **_k(hist["uniform"]),
+             bound_by="bytes", library_ms=None),
+        dict(name="fused_pass", route="cuda", source=src + "fused_pass.cu",
+             replaces="src/repro/kernels/fused.py:129",
+             launches=launches["fused_pass"], **_k(fused_res[0]),
+             bound_by="bytes", library_ms=None),
+        dict(name="local_sort", route="cuda", source=src + "local_sort.cu",
+             replaces="src/repro/kernels/bitonic.py:94",
+             launches=launches["local_sort"], **_k(local_res),
+             bound_by="bytes", library_ms=None),
+        dict(name="merge_rows", route="cuda", source=src + "merge_rows.cu",
+             replaces="src/repro/core/plan.py:250",
+             launches=launches["merge_rows"], **_k(merge_res),
+             bound_by="bytes", library_ms=None),
+    ]
+    emit({"phase": "summary", "main_path": "uint32_uniform_kv",
+          "host_reads": launches["host_reads"], "sort_ms": main["ms"],
+          "torch_sort_ms": main["torch_sort_ms"]})
+    emit({"kernels": kernels})
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def _k(res):
+    return dict(max_abs_err=res["max_abs_err"], ms=res["ms"],
+                plain_ms=res["plain_ms"], bound_ms=res["bound_ms"])
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--log2n", type=int, default=28,
+                        help="log2 of the largest key count (default 28)")
+    parser.add_argument("--reps", type=int, default=3,
+                        help="timed repetitions per measurement")
+    args = parser.parse_args(argv)
+    try:
+        return run(args)
+    except ImportError as exc:
+        print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
+        return 3
+    except Failure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,136 @@
+"""One fused launch per counting pass: port of ``repro.kernels.fused``.
+
+``fused_counting_pass`` partitions every active segment by the pass digit,
+copies the done gaps between them through, scatters keys and every value
+leaf into the alternate ping-pong buffer, and counts the next pass's digit
+histogram (and, with ``lookahead``, the one after) — one read and one write
+of the keys per pass (§4.3–§4.4).  On a CUDA tensor it launches
+``csrc/fused_pass.cu`` (one CTA per flat descriptor row, in-segment carries
+by decoupled look-back; see the source note); on a CPU tensor it runs the
+plain version in ``ref.py``.  The alternate buffers are written in place and
+returned, which takes the place of the reference's donation.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.histogram import digit_total
+
+#: value leaves one launch carries (the C side's pointer table)
+MAX_LEAVES = 8
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGS = ([_P, _P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I, _P, _P] + [_I] * 10 +
+         [_P] * 5 + [_P])
+
+
+def pad_length(n: int, kpb: int) -> int:
+    """Padded ping-pong length: whole KPB tiles plus one spare tile (slot
+    ``n`` is the trash slot)."""
+    return n + ((-n) % kpb) + kpb
+
+
+def make_ping_pong(keys: torch.Tensor, val_leaves, kpb: int):
+    """Pad keys (all-ones sentinel, the carrier's -1) and value leaves
+    (zeros) into ``(cur_keys, cur_vals), (alt_keys, alt_vals)``."""
+    n = keys.shape[0]
+    pad = pad_length(n, kpb) - n
+    ck = torch.cat([keys, keys.new_full((pad,), -1)])
+    cv = tuple(torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+               for v in val_leaves)
+    ak = torch.full_like(ck, -1)
+    av = tuple(torch.zeros_like(v) for v in cv)
+    return (ck, cv), (ak, av)
+
+
+def initial_histogram(buf_keys: torch.Tensor, n: int, lo: int, width: int,
+                      r: int, a_max: int, kpb: int) -> torch.Tensor:
+    """Pass 0's (a_max, r) histogram table over the single segment [0, n):
+    the one unfused key sweep of the sort (§4.3), row 0 populated."""
+    r0 = 1 << width
+    if _build.on_cpu(buf_keys):
+        # the reference's form: tile rows, sum, drop the sentinel padding
+        hist = ref.radix_histogram_ref(buf_keys.reshape(-1, kpb), lo,
+                                       width).sum(0, dtype=torch.int32)
+        hist[r0 - 1] -= buf_keys.shape[0] - n
+    else:
+        hist = digit_total(buf_keys, n, lo, width)
+    out = torch.zeros((a_max, r), dtype=torch.int32, device=buf_keys.device)
+    out[0, :r0] = hist
+    return out
+
+
+def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
+            next_sid, kpb, r, a_max, lookahead):
+    if r > 256:
+        raise ValueError(f"the CUDA fused pass supports d <= 8, got r = {r}")
+    if len(src_vals) > MAX_LEAVES:
+        raise ValueError(f"at most {MAX_LEAVES} value leaves per launch")
+    for v in src_vals:
+        if v.dim() != 1 or v.element_size() not in (1, 2, 4, 8):
+            raise ValueError("value leaves must be 1-D with 1, 2, 4 or "
+                             "8-byte elements")
+    dev = src_keys.device
+    tables = [t.reshape(-1).to(torch.int32).contiguous() for t in tables]
+    base_excl = base_excl.to(torch.int32).contiguous()
+    next_sid = next_sid.to(torch.int32).contiguous()
+    _build.check_cuda(src_keys, alt_keys, *src_vals, *alt_vals, *tables,
+                      base_excl, next_sid)
+    rows = tables[0].shape[0]
+    hist = torch.zeros(a_max * r, dtype=torch.int32, device=dev)
+    hist2 = torch.zeros_like(hist) if lookahead else None
+    state = torch.zeros(1 + rows, dtype=torch.int32, device=dev)
+    agg = torch.empty(rows * r, dtype=torch.int32, device=dev)
+    incl = torch.empty_like(agg)
+    nv = len(src_vals)
+    val_src = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in src_vals])
+    val_dst = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in alt_vals])
+    val_bytes = (ctypes.c_int * max(nv, 1))(*[v.element_size()
+                                              for v in src_vals])
+    lo, width, nlo, nwidth, n2lo, n2width = sc
+    fn = _build.function("fused_pass", "fused_pass_launch", _ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(_build.ptr(src_keys), _build.ptr(alt_keys),
+                src_keys.element_size(), val_src, val_dst, val_bytes, nv,
+                *[_build.ptr(t) for t in tables], rows, _build.ptr(base_excl),
+                _build.ptr(next_sid), lo, width, nlo, nwidth, n2lo, n2width,
+                int(lookahead), r, a_max, kpb, _build.ptr(hist),
+                _P(hist2.data_ptr() if lookahead else None), _build.ptr(state),
+                _build.ptr(agg), _build.ptr(incl), _build.stream_handle(dev))
+    _build.check("fused_pass", rc)
+    _build.COUNTS["fused_pass"] += 1
+    return (hist, hist2) if lookahead else (hist,)
+
+
+def fused_counting_pass(src_keys, src_vals, alt_keys, alt_vals, pass_scalars,
+                        blk_seg, blk_off, blk_reset, blk_count, blk_active,
+                        base_excl, next_sid, *, kpb: int, r: int, a_max: int,
+                        n: int, lookahead: bool = False):
+    """One full counting pass over all active buckets in one launch.
+
+    Arguments follow the reference: current buffers ``src_keys`` /
+    ``src_vals`` (a tuple of 1-D leaves), alternate buffers ``alt_keys`` /
+    ``alt_vals`` (written in place), ``pass_scalars`` = the digit windows
+    ``(lo, width, next_lo, next_width[, next2_lo, next2_width])`` as ints
+    (``plan.digit_window``), the descriptor tables of
+    ``plan.make_region_blocks`` (flat (G,) or packed (G', B): rows are read
+    in descriptor order either way), ``base_excl`` (a_max, r) absolute run
+    starts and ``next_sid`` (a_max * r,) next-pass segment ids.
+
+    Returns ``(new_keys, new_vals, hist_next)`` and, with ``lookahead``,
+    ``hist_next2`` as a fourth element; the histograms are (a_max * r,).
+    """
+    sc = [int(v) for v in pass_scalars]
+    sc = (sc + [0, 0])[:6]
+    tables = (blk_seg, blk_off, blk_reset, blk_count, blk_active)
+    if _build.on_cpu(src_keys):
+        return ref.fused_counting_pass_ref(
+            src_keys, src_vals, alt_keys, alt_vals, sc, *tables, base_excl,
+            next_sid, kpb=kpb, r=r, a_max=a_max, n=n, lookahead=lookahead)
+    hists = _launch(src_keys, tuple(src_vals), alt_keys, tuple(alt_vals), sc,
+                    tables, base_excl, next_sid, kpb, r, a_max, lookahead)
+    return (alt_keys, tuple(alt_vals), *hists)

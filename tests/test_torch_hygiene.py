@@ -1,0 +1,116 @@
+"""Rules every slice of the port is held to.
+
+* No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax`` or the reference package ``repro`` (checked on the source's AST
+  and on ``sys.modules`` after importing the port in a fresh interpreter).
+* No quiet move to the CPU: a numpy input with no ``device=`` goes to the
+  GPU, and without one it raises; a kernel wrapper given a tensor that is
+  neither on the CPU nor on CUDA raises instead of running anything.
+* ``chip_smoke.py`` exits non-zero and prints no result without a GPU, and
+  when it stands alone without the repository.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+BANNED = {"jax", "jaxlib", "repro"}
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_neither_jax_nor_reference():
+    sources = _port_sources()
+    assert len(sources) > 10
+    for path in sources:
+        bad = BANNED & set(_imported_roots(path))
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.core.hybrid, "
+            "repro_torch.kernels.fused, repro_torch.kernels.bitonic, "
+            "repro_torch.core.interop\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(BANNED)!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_numpy_input_goes_to_the_gpu_or_raises():
+    from repro_torch import hybrid_sort
+    x = np.arange(100, dtype=np.uint32)[::-1].copy()
+    if torch.cuda.is_available():
+        out = hybrid_sort(x)
+        assert out.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            hybrid_sort(x)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            hybrid_sort(x, device="cuda")
+    out = hybrid_sort(x, device="cpu")
+    assert out.device.type == "cpu"
+    assert np.array_equal(out.numpy(), np.sort(x))
+
+
+def test_work_follows_the_tensor_device():
+    from repro_torch import hybrid_sort
+    x = torch.tensor([3, 1, 2], dtype=torch.int32)
+    vals = np.array([30, 10, 20], np.int64)
+    k, v = hybrid_sort(x, vals, engine="kernel")
+    assert k.device.type == v.device.type == "cpu"
+    assert k.tolist() == [1, 2, 3] and v.tolist() == [10, 20, 30]
+
+
+def test_wrappers_reject_other_devices():
+    from repro_torch.kernels import bitonic, fused, histogram
+    meta = torch.empty((2, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        histogram.radix_histogram(meta, 0, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitonic.bitonic_sort_rows_stable(meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.initial_histogram(meta.reshape(-1), 100, 0, 8, 256, 1, 64)
+
+
+def _run_smoke(cwd, script):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_without_gpu_or_repo_prints_no_result(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    out = _run_smoke(ROOT, ROOT / "chip_smoke.py")
+    assert out.returncode != 0
+    assert out.stdout == ""
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    out = _run_smoke(tmp_path, lone)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
