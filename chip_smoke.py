@@ -5,30 +5,49 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each one to its plain PyTorch version on the card at the shapes the
-main path gives it (exact integer equality), drives the main path —
-``repro_torch.hybrid_sort`` at its default engine, which must resolve to the
-kernels — on realistic key sets (2^28 uint32 keys alone and with values,
-skewed keys, float and int64 keys), checks every result byte for byte
-against ``torch.sort(stable=True)`` of the ordered-bits carrier, checks the
-launch census, and times the sort beside ``torch.sort``.
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all started together) and drives both paths of
+the port, each with the launch counters set to 0 just before it and read
+just after:
+
+* the main path, ``repro_torch.hybrid_sort`` at its default engine (which
+  must resolve to the kernels), on 2^28 uint32 keys alone and with values,
+  Zipf, AND-3, float and int64 keys: every kernel is first held to its
+  plain PyTorch version at the shapes the main path gives it (exact
+  integer equality), every sort is checked byte for byte against
+  ``torch.sort(stable=True)`` of the ordered-bits carrier, the launch census
+  is checked and one sort is profiled;
+* the out-of-core path, ``repro_torch.oocsort``, on 2^30 uint32 keys with an
+  int32 index value (8 GiB of 8-byte records) in chunks of 2^28, kway 4,
+  tile 4096 (4 runs, one merge round): ``merge_check`` holds the merge
+  kernel to its plain version on the tables and buffers of that round
+  (taken from a profiled run, which also gives the chunk phase's share of
+  upload/kernel overlap); ``ooc`` (device-resident) and ``ooc_spill``
+  (host spill under a 2^34-byte budget: 5 runs, 2 spilled rounds) are timed
+  on the host clock and checked against ``torch.sort(stable=True)`` on the
+  card, with merge launches equal to the rounds or strips.  The host's RAM,
+  the pinned link rates and an in-core yardstick (upload +
+  ``torch.sort`` + download) are printed beside them.
 
 Every phase prints one JSON line.  The line before the last two lists the
-kernels (launches on the main path, time, bound, plain version's time:
-``{"kernels": [...]}``); the next is the card's name and power limit from
-``nvidia-smi``; the last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
-last line.  Without a GPU, or without the repository's ``src/`` beside it,
-the script exits non-zero and prints no result.
+kernels (launches on their path, time, bound, plain version's time, library
+call's time: ``{"kernels": [...]}``); the next is the card's name and power
+limit from ``nvidia-smi``; the last is ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before the last line.  Without a GPU, or without
+the repository's ``src/`` beside it, the script exits non-zero and prints
+no result.
 
-``--log2n`` shrinks the main sizes (a quick check); ``--reps`` sets the
-timed repetitions.  Neither is needed for the full run.
+``--log2n`` shrinks the main sizes (the ooc input is 2^(log2n + 2) keys in
+chunks of 2^log2n, the spill budget 2^(log2n + 6) bytes): a quick check;
+``--reps`` sets the timed repetitions.  Neither is needed for the full run,
+which runs every phase at full size.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -203,8 +222,20 @@ def check_histogram(torch, keys_u32, kpb, reps):
         ms = cuda_ms(torch, lambda: histogram.digit_total(buf, n, 24, 8), reps)
         plain = cuda_ms(torch, lambda: ref.radix_histogram_ref(
             buf[:n].reshape(1, -1), 24, 8), max(1, reps // 2))
+        # the library yardstick: torch.bincount of the same digits; the
+        # digit extraction ((carrier >> 24) & 255) runs outside the timed
+        # window (library_ms) and inside it (library_with_digits_ms)
+        digits = ((buf[:n] >> 24) & 255).to(torch.int32)
+        lib = cuda_ms(torch, lambda: torch.bincount(digits, minlength=256),
+                      reps)
+        lib_digits = cuda_ms(torch, lambda: torch.bincount(
+            ((buf[:n] >> 24) & 255).to(torch.int32), minlength=256), reps)
+        need(torch.equal(torch.bincount(digits, minlength=256).to(torch.int32),
+                         got), f"torch.bincount ({label}) != histogram")
+        del digits
         out[label] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
-                          bound_ms=bound_ms(n * 4 + 256 * 4))
+                          bound_ms=bound_ms(n * 4 + 256 * 4),
+                          library_ms=lib, library_with_digits_ms=lib_digits)
         emit({"phase": "kernel_check", "kernel": "histogram", "keys": label,
               "n": n, "equal": True, **out[label]})
     return out
@@ -486,6 +517,356 @@ def make_cases(torch, np, log2n, dev):
     yield "int64_uniform", put(i64), False
 
 
+# --------------------------------------------------------------------------
+# phase 5: the out-of-core sort (paper §5) and its merge kernel
+# --------------------------------------------------------------------------
+
+#: the ooc phases' plan: 4 runs of 2^28 keys at full size, one merge round
+OOC_KWAY = 4
+OOC_TILE = 4096
+
+
+def host_memory():
+    """Total and available host RAM (bytes) from ``os.sysconf``."""
+    page = os.sysconf("SC_PAGE_SIZE")
+    res = {"phase": "host", "total_bytes": page * os.sysconf("SC_PHYS_PAGES"),
+           "available_bytes": page * os.sysconf("SC_AVPHYS_PAGES"),
+           "cpus": os.cpu_count()}
+    emit(res)
+    return res
+
+
+def link_rates(torch, reps):
+    """Pinned host <-> device copy rates (bytes/s), one 1 GiB copy each way,
+    and the host copy rate into pinned memory (host clock); medians of
+    ``reps`` after a warm-up."""
+    nbytes = 1 << 30
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host.fill_(1)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    h2d = cuda_ms(torch, lambda: dev.copy_(host, non_blocking=True), reps)
+    d2h = cuda_ms(torch, lambda: host.copy_(dev, non_blocking=True), reps)
+    # the host side of the staging: one torch CPU copy, pageable -> pinned
+    page = torch.empty(nbytes, dtype=torch.uint8)
+    page.fill_(2)
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        host.copy_(page)
+        times.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = statistics.median(times[1:])
+    res = {"phase": "link", "bytes": nbytes, "h2d_ms": h2d, "d2h_ms": d2h,
+           "h2d_bytes_per_s": nbytes / (h2d / 1e3),
+           "d2h_bytes_per_s": nbytes / (d2h / 1e3),
+           "host_copy_ms": copy_ms,
+           "host_copy_bytes_per_s": nbytes / (copy_ms / 1e3)}
+    emit(res)
+    del host, dev, page
+    return res
+
+
+def ooc_input(np, log2n):
+    """The ooc phases' input from a seed: 2^(log2n + 2) uint32 keys with an
+    int32 index value (8-byte records, the paper's record shape)."""
+    n = 1 << (log2n + 2)
+    keys = np.random.default_rng(1611).integers(0, 2**32, n, dtype=np.uint32)
+    return keys, np.arange(n, dtype=np.int32)
+
+
+def check_sorted(torch, label, keys, out_k, out_v):
+    """Keys byte-equal to ``torch.sort(stable=True)`` of the carrier on the
+    card, values equal to its stable indices."""
+    import numpy as np
+    from repro_torch.core import bijection
+    dev = torch.device("cuda")
+    kd = torch.from_numpy(keys.view(np.int32)).to(dev)
+    s = torch.sort(bijection.sortable(kd), stable=True)
+    del kd
+    got = torch.from_numpy(out_k.view(np.int32)).to(dev)
+    need(torch.equal(got, bijection.sortable(s.values)),
+         f"{label}: keys differ from torch.sort")
+    del got
+    got = torch.from_numpy(out_v).to(dev)
+    need(torch.equal(got.to(torch.int64), s.indices),
+         f"{label}: values differ from torch.sort(stable=True) indices")
+    del got, s
+    torch.cuda.empty_cache()
+
+
+def _device_intervals(prof):
+    """(name, start_us, end_us) of every device-side event of a trace."""
+    from torch.autograd import DeviceType
+    out = []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            out.append((ev.name, ev.time_range.start, ev.time_range.end))
+    return out
+
+
+def _union(iv):
+    merged = []
+    for a, b in sorted(iv):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _measure(iv):
+    return sum(b - a for a, b in iv)
+
+
+def _intersect(x, y):
+    out, i, j = [], 0, 0
+    while i < len(x) and j < len(y):
+        a, b = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        if a < b:
+            out.append([a, b])
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def overlap_share(events):
+    """The chunk phase's overlap of uploads and kernels: the window runs
+    from the first host-to-device copy to the start of the first merge
+    kernel; returns the shares of the window in which an H2D copy, a
+    kernel, and both at once are active."""
+    h2d = [(a, b) for n, a, b in events if n.startswith("Memcpy HtoD")]
+    merges = [a for n, a, b in events if "kway_merge_kernel" in n]
+    if not h2d or not merges:
+        return None
+    lo, hi = min(a for a, _ in h2d), min(merges)
+    clip = lambda iv: _union([(max(a, lo), min(b, hi)) for a, b in iv
+                              if min(b, hi) > max(a, lo)])
+    kern = clip([(a, b) for n, a, b in events
+                 if not n.startswith(("Memcpy", "Memset"))])
+    up = clip(h2d)
+    span = hi - lo
+    merge_end = max(b for n, a, b in events if "kway_merge_kernel" in n)
+    last = max(b for _, _, b in events)
+    d2h_after = _union([(max(a, merge_end), b) for n, a, b in events
+                        if n.startswith("Memcpy DtoH") and b > merge_end])
+    return {"window_ms": span / 1e3, "h2d_share": _measure(up) / span,
+            "kernel_share": _measure(kern) / span,
+            "h2d_and_kernel_share": _measure(_intersect(up, kern)) / span,
+            "trace_span_ms": (last - lo) / 1e3,
+            "merge_kernel_ms": sum(b - a for n, a, b in events
+                                   if "kway_merge_kernel" in n) / 1e3,
+            "merge_start_to_merge_end_ms": (merge_end - hi) / 1e3,
+            "after_merge_ms": (last - merge_end) / 1e3,
+            "after_merge_d2h_ms": _measure(d2h_after) / 1e3}
+
+
+def merge_check(torch, np, keys, vals, chunk, reps):
+    """The merge kernel against its plain version on the tables of a real
+    round: ``oocsort`` of the ooc phases' input under ``torch.profiler``,
+    with ``outofcore.merge_round`` wrapped to keep clones of its inputs.
+    Returns the check's numbers and the chunk phase's overlap shares."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import oocsort
+    from repro_torch.core import bijection, outofcore
+    from repro_torch.kernels import merge, ref
+    rec = {}
+    orig = outofcore.merge_round
+
+    def hook(src_keys, src_vals, alt_keys, alt_vals, *, lens, kway, tile, n):
+        if not rec:
+            rec.update(keys=src_keys.clone(),
+                       vals=tuple(v.clone() for v in src_vals),
+                       tables=merge.merge_path_partition(src_keys, lens,
+                                                         kway, tile),
+                       lens=lens, kway=kway, tile=tile, n=n)
+        return orig(src_keys, src_vals, alt_keys, alt_vals, lens=lens,
+                    kway=kway, tile=tile, n=n)
+
+    outofcore.merge_round = hook
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            oocsort(keys, chunk, values=vals, kway=OOC_KWAY, tile=OOC_TILE)
+            torch.cuda.synchronize()
+    finally:
+        outofcore.merge_round = orig
+    overlap = overlap_share(_device_intervals(prof))
+    del prof
+    need(rec, "the ooc run made no merge round")
+    ck, cv, tables = rec["keys"], rec["vals"], rec["tables"]
+    kway, tile, n = rec["kway"], rec["tile"], rec["n"]
+    kw = dict(kway=kway, tpb=tile, n=n)
+
+    def fresh():
+        return torch.empty_like(ck), tuple(torch.empty_like(v) for v in cv)
+
+    got_k, got_v = merge.kway_merge_round(ck, cv, *fresh(), *tables, **kw)
+    want_k, want_v = ref.kway_merge_round_ref(ck, cv, *fresh(), *tables,
+                                              **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [(got_k[:n], want_k[:n])] +
+                      [(a[:n], b[:n]) for a, b in zip(got_v, want_v)])
+    need(err == 0, "merge kernel != plain version")
+    equal_bytes = bool(torch.equal(got_k[:n], want_k[:n]) and all(
+        torch.equal(a[:n], b[:n]) for a, b in zip(got_v, want_v)))
+    need(equal_bytes, "merge kernel != plain version (bytes)")
+    del want_k, want_v
+    alt = fresh()
+    ms = cuda_ms(torch, lambda: merge.kway_merge_round(ck, cv, *alt, *tables,
+                                                       **kw), reps)
+    plain = cuda_ms(torch, lambda: ref.kway_merge_round_ref(
+        ck, cv, *alt, *tables, **kw), 1)
+    del alt, got_k, got_v
+    torch.cuda.empty_cache()
+    srt = bijection.sortable(ck[:n])
+    lib = cuda_ms(torch, lambda: torch.sort(srt, stable=True), reps)
+    del srt
+    n_pad = ck.numel()
+    kb, vb = ck.element_size(), sum(v.element_size() for v in cv)
+    table_bytes = sum(t.numel() * 4 for t in tables)
+    res = {"phase": "merge_check", "n": n, "n_pad": n_pad,
+           "runs": len(rec["lens"]), "kway": kway, "tile": tile,
+           "tiles": tables[0].numel(), "values": len(cv), "equal": True,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "torch_sort_stable_ms": lib,
+           "bound_bytes": 2 * n_pad * (kb + vb) + table_bytes,
+           "bound_ms": bound_ms(2 * n_pad * (kb + vb) + table_bytes)}
+    emit(res)
+    del ck, cv, tables, rec
+    torch.cuda.empty_cache()
+    return res, overlap
+
+
+def incore_yardstick(torch, np, keys, vals):
+    """Upload + ``torch.sort(stable=True)`` + value gather + download of the
+    same records, as a user with enough device memory would write it
+    (pageable host arrays, ``.to`` / ``.cpu``): host clock, ending in a
+    synchronize, with the three parts (a synchronize between them)."""
+    from repro_torch.core import bijection
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kd = torch.from_numpy(keys.view(np.int32)).to(dev)
+    vd = torch.from_numpy(vals).to(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s = torch.sort(bijection.sortable(kd), stable=True)
+    sk, sv = bijection.sortable(s.values), vd[s.indices]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out_k, out_v = sk.cpu(), sv.cpu()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del kd, vd, s, sk, sv, out_k, out_v
+    torch.cuda.empty_cache()
+    return {"ms": (t3 - t0) * 1e3, "upload_ms": (t1 - t0) * 1e3,
+            "sort_ms": (t2 - t1) * 1e3, "download_ms": (t3 - t2) * 1e3}
+
+
+def ooc_case(torch, np, label, keys, vals, chunk, rates, **kw):
+    """One counted ``oocsort`` run: counts set to 0 just before it and read
+    just after, host-clock wall time ending in a synchronize, peak device
+    memory, then the equality checks against ``torch.sort``."""
+    from repro_torch import oocsort
+    from repro_torch.kernels import COUNTS, reset_counts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    out_k, out_v, st = oocsort(keys, chunk, values=vals, kway=OOC_KWAY,
+                               tile=OOC_TILE, return_stats=True, **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(COUNTS)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_sorted(torch, label, keys, out_k, out_v)
+    del out_k, out_v
+    need(counts["fused_pass"] == st.chunk_passes_executed,
+         f"{label}: fused launches {counts['fused_pass']} != "
+         f"{st.chunk_passes_executed} executed chunk passes")
+    need(st.h2d_bytes + st.d2h_bytes == st.chunk_link_bytes +
+         st.spill_link_bytes + st.retry_link_bytes,
+         f"{label}: link-byte identity broken")
+    link_bound_s = max(st.h2d_bytes / rates["h2d_bytes_per_s"],
+                       st.d2h_bytes / rates["d2h_bytes_per_s"])
+    res = {"phase": label, "n": int(keys.size), "chunk_elems": chunk,
+           "kway": OOC_KWAY, "tile": OOC_TILE, "equal": True,
+           "stats": st._asdict(), "launches": counts, "wall_ms": wall,
+           "h2d_bytes": st.h2d_bytes, "d2h_bytes": st.d2h_bytes,
+           "link_bound_ms": link_bound_s * 1e3,
+           "peak_mem_bytes": peak,
+           "host_peak_rss_bytes":
+               resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+           **kw}
+    return res, st, counts
+
+
+def spill_strips(n, nominal, st, kway, tile):
+    """Strips (= merge launches) of a spill run, replayed from its plan: the
+    input cut into ``nominal`` chunks, each re-split to the clamped
+    ``st.chunk_elems``, then per round one strip per slab of whole tiles of
+    every multi-run group."""
+    from repro_torch.kernels.merge import merge_groups
+    lens = []
+    for o in range(0, n, nominal):
+        m = min(nominal, n - o)
+        lens += [min(st.chunk_elems, m - p)
+                 for p in range(0, m, st.chunk_elems)]
+    per_strip = st.spill_slab_elems // tile
+    strips = 0
+    while len(lens) > 1:
+        for grp in merge_groups(lens, kway):
+            if len(grp) > 1:
+                strips += -(-(-(-sum(grp) // tile)) // per_strip)
+        lens = [sum(g) for g in merge_groups(lens, kway)]
+    return strips
+
+
+def ooc_phases(torch, np, log2n, reps):
+    """The ooc and ooc_spill phases and the merge check, on one input."""
+    host_memory()
+    rates = link_rates(torch, reps)
+    keys, vals = ooc_input(np, log2n)
+    chunk = 1 << log2n
+    merge_res, overlap = merge_check(torch, np, keys, vals, chunk, reps)
+
+    res, st, counts = ooc_case(torch, np, "ooc", keys, vals, chunk, rates)
+    need(st.num_chunks == 4 and st.merge_rounds == 1,
+         f"ooc: {st.num_chunks} runs / {st.merge_rounds} rounds, expected "
+         f"the (4, 0) plan of 4 runs and 1 round")
+    need(counts["merge"] == st.merge_rounds,
+         f"ooc: merge launches {counts['merge']} != {st.merge_rounds} rounds")
+    yard = incore_yardstick(torch, np, keys, vals)
+    res["incore_yardstick_ms"] = yard.pop("ms")
+    res["incore_yardstick_parts"] = yard
+    res["chunk_phase_overlap"] = overlap
+    emit(res)
+    ooc_counts = counts
+
+    # the budget's clamp sizes the chunks: ask for the whole input as one
+    # chunk and let it cut runs of ~238.6 M keys (5 runs, 2 spilled rounds)
+    budget = 1 << (log2n + 6)
+    res, st, counts = ooc_case(torch, np, "ooc_spill", keys, vals, keys.size,
+                               rates, spill_budget_bytes=budget)
+    strips = spill_strips(keys.size, keys.size, st, OOC_KWAY, OOC_TILE)
+    need(st.num_chunks == 5 and st.rounds_spilled == 2,
+         f"ooc_spill: {st.num_chunks} runs / {st.rounds_spilled} spilled "
+         f"rounds, expected 5 and 2")
+    need(st.rounds_spilled >= 1, "ooc_spill: no round spilled")
+    need(st.device_high_water_bytes <= budget,
+         f"ooc_spill: modeled high water {st.device_high_water_bytes} > "
+         f"budget {budget}")
+    need(counts["merge"] == strips,
+         f"ooc_spill: merge launches {counts['merge']} != {strips} strips")
+    res.update(strips=strips, budget_bytes=budget,
+               peak_over_budget=res["peak_mem_bytes"] / budget)
+    emit(res)
+    return merge_res, ooc_counts
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -534,13 +915,20 @@ def run(args) -> int:
     need(all(launches[k] > 0 for k in ("histogram", "fused_pass",
                                        "local_sort", "merge_rows")),
          f"a kernel of the main path was not launched: {launches}")
+    torch.cuda.empty_cache()
+
+    # phase 5: the out-of-core path (its own counted runs)
+    kmerge_res, ooc_launches = ooc_phases(torch, np, args.log2n, args.reps)
+    need(all(ooc_launches[k] > 0 for k in ("histogram", "fused_pass",
+                                           "local_sort", "merge")),
+         f"a kernel of the ooc path was not launched: {ooc_launches}")
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
         dict(name="histogram", route="cuda", source=src + "histogram.cu",
              replaces="src/repro/kernels/histogram.py:28",
              launches=launches["histogram"], **_k(hist["uniform"]),
-             bound_by="bytes", library_ms=None),
+             bound_by="bytes", library_ms=hist["uniform"]["library_ms"]),
         dict(name="fused_pass", route="cuda", source=src + "fused_pass.cu",
              replaces="src/repro/kernels/fused.py:129",
              launches=launches["fused_pass"], **_k(fused_res[0]),
@@ -553,6 +941,11 @@ def run(args) -> int:
              replaces="src/repro/core/plan.py:250",
              launches=launches["merge_rows"], **_k(merge_res),
              bound_by="bytes", library_ms=None),
+        dict(name="merge", route="cuda", source=src + "merge.cu",
+             replaces="src/repro/kernels/merge.py:313",
+             launches=ooc_launches["merge"], **_k(kmerge_res),
+             bound_by="bytes",
+             library_ms=kmerge_res["torch_sort_stable_ms"]),
     ]
     emit({"phase": "summary", "main_path": "uint32_uniform_kv",
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],

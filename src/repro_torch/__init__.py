@@ -7,8 +7,9 @@ never ``jax`` or ``repro``.  Entry points run on the GPU unless the caller
 asks for the CPU; on the CPU the kernel engine runs the kernels' plain
 PyTorch versions.
 """
-from repro_torch.core import (ENGINES, SortConfig, SortStats, default_config,
-                              hybrid_sort, resolve_engine)
+from repro_torch.core import (ENGINES, OocStats, SortConfig, SortStats,
+                              default_config, hybrid_sort, oocsort,
+                              resolve_engine)
 
-__all__ = ["hybrid_sort", "SortConfig", "SortStats", "default_config",
-           "ENGINES", "resolve_engine"]
+__all__ = ["hybrid_sort", "oocsort", "SortConfig", "SortStats", "OocStats",
+           "default_config", "ENGINES", "resolve_engine"]

@@ -276,7 +276,7 @@ def hybrid_sort(keys, values: Any = None,
                 cfg: Optional[model.SortConfig] = None,
                 return_stats: bool = False, max_passes: Optional[int] = None,
                 engine: Optional[str] = None, adaptive: Optional[bool] = None,
-                compress: bool = False, device=None):
+                compress: bool = False, device=None, narrow: bool = True):
     """Sort 1-D ``keys`` (any supported dtype) with the hybrid radix sort.
 
     ``keys`` and ``values`` (an optional array or pytree of arrays permuted
@@ -293,6 +293,11 @@ def hybrid_sort(keys, values: Any = None,
 
     ``adaptive`` (default ``cfg.adaptive``) enables the entropy-adaptive
     schedule; ``compress=True`` sorts the bit-packed live key columns.
+    ``narrow=False`` skips the adaptive schedule's static live-bit window
+    and schedules the full key width (mid-sort elision stays on): the
+    reference narrows concrete keys only, and its out-of-core chunk sorts
+    run traced, so ``oocsort`` passes ``narrow=False`` to count the same
+    executed passes.
 
     Returns ``sorted_keys``, or ``(sorted_keys, permuted_values)`` with
     values; ``stats`` (a ``SortStats`` of Python numbers) is appended when
@@ -327,7 +332,7 @@ def hybrid_sort(keys, values: Any = None,
         cplan = bijection.compression_plan(carrier)
         carrier = bijection.pack_ordered_bits(carrier, cplan)
         lo, hi = 0, cplan.packed_bits
-    elif adaptive:
+    elif adaptive and narrow:
         lo, hi = live_bit_window(carrier)
 
     leaves, treedef = interop.tree_flatten(values if values is not None

@@ -47,7 +47,8 @@ def digit_at(ukeys: torch.Tensor, pass_idx: int, k: int, d: int,
     """MSD digit of pass ``pass_idx`` as int32 (0 = most significant)."""
     hi = k - pass_idx * d
     width = max(0, min(d, hi - lo))
-    return ((ukeys >> (hi - width)) & ((1 << width) - 1)).to(_I32)
+    # widen before masking: an 8-bit mask does not fit an int8 carrier
+    return (ukeys >> (hi - width)).to(_I32) & ((1 << width) - 1)
 
 
 def digit_window(pass_idx: int, k: int, d: int, lo: int = 0) -> tuple:

@@ -7,6 +7,8 @@ fused     — one launch per counting pass: stable partition + scatter of
 bitonic   — the stable shared-memory local sort (ports
             ``_bitonic_stable_kernel``)
 ops       — the local-sort finish around it (size classes, value gather)
+merge     — the out-of-core sort's k-way merge-path round (ports
+            ``_kway_merge_kernel``) and its partition math
 ref       — the kernels' plain PyTorch versions (the CPU path, and the
             ground truth the kernels are held to on the card)
 _build    — nvcc build at first use, ctypes loading, launch counters
@@ -17,7 +19,9 @@ from one to the other.
 
 Key traffic of a sort with p executed passes over the padded length n_pad
 (kb key bytes, vb value bytes): ``(2p + 1)·n_pad·kb + 2p·n_pad·vb`` for the
-prologue and the passes, plus ``2·n·(kb + vb)`` for the local sort.
+prologue and the passes, plus ``2·n·(kb + vb)`` for the local sort.  A
+merge round (or a spill strip) moves ``2·n_pad·(kb + vb)``: one read and
+one write of every key and value.
 """
 from repro_torch.kernels._build import COUNTS, reset_counts
 

@@ -24,11 +24,12 @@ from pathlib import Path
 import torch
 
 COUNTS = {"histogram": 0, "fused_pass": 0, "local_sort": 0, "merge_rows": 0,
-          "host_reads": 0}
+          "merge": 0, "host_reads": 0}
 
 #: kernel name -> source file under csrc/
 SOURCES = {"histogram": "histogram.cu", "fused_pass": "fused_pass.cu",
-           "local_sort": "local_sort.cu", "merge_rows": "merge_rows.cu"}
+           "local_sort": "local_sort.cu", "merge_rows": "merge_rows.cu",
+           "merge": "merge.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

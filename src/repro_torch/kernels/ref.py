@@ -21,7 +21,8 @@ from repro_torch.core.bijection import sortable
 
 
 def _digits(keys: torch.Tensor, lo: int, width: int) -> torch.Tensor:
-    return ((keys >> lo) & ((1 << width) - 1)).to(torch.int64)
+    # widen before masking: an 8-bit mask does not fit an int8 carrier
+    return (keys >> lo).to(torch.int64) & ((1 << width) - 1)
 
 
 def radix_histogram_ref(keys: torch.Tensor, shift: int,
@@ -147,3 +148,78 @@ def merge_rows_ref(hist: torch.Tensor, local_threshold: int,
         gstart[:, v] = ~extend
         gdone[:, v] = ~big
     return gstart, gdone
+
+
+def _tile_rank_ref(skeys, live, takes, *, kway: int, tpb: int, rank: str):
+    """Rank of every window element under (key, run, lane) order.
+
+    ``skeys`` (G, kway, tpb) are the windows in the ``sortable`` domain,
+    ``live`` their live-lane mask (a prefix of each window), ``takes``
+    (G, kway) the live counts.  Returns (G, kway * tpb) int64 ranks, exact
+    for live elements and arbitrary for dead ones.  ``"searchsorted"``: own
+    lane + per run-pair binary searches (<= in earlier runs, < in later
+    ones); ``"counting"``: the all-pairs comparison rank.
+    """
+    g = skeys.shape[0]
+    kf = skeys.reshape(g, kway * tpb)
+    flat = torch.arange(kway * tpb, device=skeys.device)
+    if rank == "counting":
+        lf = live.reshape(g, kway * tpb)
+        before = lf[:, None, :] & (
+            (kf[:, None, :] < kf[:, :, None]) |
+            ((kf[:, None, :] == kf[:, :, None]) &
+             (flat[None, :] < flat[:, None])))
+        return before.sum(dim=2)
+    # dead lanes mask to the all-ones sentinel (the sortable maximum), so
+    # every row stays sorted; counts clip to the live prefix
+    win = torch.where(live, skeys, torch.iinfo(skeys.dtype).max)
+    run_of = flat // tpb
+    out = (flat % tpb).expand(g, -1).clone()
+    for r in range(kway):
+        row = win[:, r, :].contiguous()
+        le = torch.searchsorted(row, kf, side="right", out_int32=True)
+        lt = torch.searchsorted(row, kf, side="left", out_int32=True)
+        c = torch.where(run_of > r, le, torch.where(run_of < r, lt, 0))
+        out += torch.minimum(c, takes[:, r:r + 1].to(c.dtype))
+    return out
+
+
+def kway_merge_round_ref(src_keys, src_vals, alt_keys, alt_vals, out_off,
+                         out_cnt, win_start, win_take, *, kway: int, tpb: int,
+                         n: int, rank: str = "searchsorted"):
+    """One k-way merge round over descriptor tables (see ``merge.py``).
+
+    Grid step g loads ``kway`` windows of ``tpb`` lanes at
+    ``win_start[g*kway + r]`` (live lanes: the prefix ``< win_take``),
+    ranks every element under (key, run, lane) order and writes key and
+    value leaves to ``out_off[g] + rank`` when live and ``rank <
+    out_cnt[g]``, else to the trash slot ``n``.  The buffers are
+    ``pad_length``-sized, so every window load stays in bounds.  Tiles are
+    processed in blocks of about 2^22 window lanes, so memory stays bounded
+    at any n.  Returns ``(alt_keys, alt_vals)``, written in place.
+    """
+    if rank not in ("searchsorted", "counting"):
+        raise ValueError(f"unknown tile rank mode {rank!r}")
+    g_all = out_off.shape[0]
+    dev = src_keys.device
+    lane = torch.arange(tpb, device=dev)
+    lanes = kway * tpb
+    block = max(1, (1 << 22) // (lanes * (lanes if rank == "counting" else 1)))
+    for g0 in range(0, g_all, block):
+        g1 = min(g0 + block, g_all)
+        g = g1 - g0
+        starts = win_start.reshape(g_all, kway)[g0:g1].to(torch.int64)
+        takes = win_take.reshape(g_all, kway)[g0:g1].to(torch.int64)
+        pos = (starts[:, :, None] + lane).reshape(-1)
+        keys = src_keys[pos]
+        live = lane < takes[:, :, None]
+        ranks = _tile_rank_ref(sortable(keys).reshape(g, kway, tpb), live,
+                               takes, kway=kway, tpb=tpb, rank=rank)
+        ok = live.reshape(g, -1) & (
+            ranks < out_cnt[g0:g1].to(torch.int64)[:, None])
+        dest = torch.where(ok, out_off[g0:g1].to(torch.int64)[:, None] +
+                           ranks, n).reshape(-1)
+        alt_keys[dest] = keys
+        for sv, dv in zip(src_vals, alt_vals):
+            dv[dest] = sv[pos]
+    return alt_keys, tuple(alt_vals)

@@ -196,3 +196,12 @@ def test_engine_resolution():
     assert resolve_engine("kernel", "cpu") == "kernel"
     with pytest.raises(ValueError):
         resolve_engine("bogus", "cpu")
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8])
+def test_8bit_keys_full_digit_parity(rng, dtype):
+    """8-bit keys with d = 8: the digit mask 0xFF does not fit the int8
+    carrier, so digits are widened before masking."""
+    x = rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max, 3000,
+                     dtype=dtype, endpoint=True)
+    _check(x, np.arange(3000, dtype=np.int32), TCFG)
