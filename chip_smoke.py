@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together) and drives both paths of
+(one ``nvcc`` per source, all started together) and drives three paths of
 the port, each with the launch counters set to 0 just before it and read
 just after:
 
@@ -17,6 +17,19 @@ just after:
   integer equality), every sort is checked byte for byte against
   ``torch.sort(stable=True)`` of the ordered-bits carrier, the launch census
   is checked and one sort is profiled;
+* the library surface, each public entry point of
+  ``repro_torch.kernels`` whose TPU kernel no sort path calls
+  (``bitonic_sort_rows``, ``bitonic_sort_rows_kv``, ``tile_multisplit``,
+  ``tile_multisplit_kv``, ``assigned_histogram``), once in a counted run
+  and checked by the reference tests' means (sorted rows, pair
+  consistency, digit-major tiles, histograms), at the (4,0) config's
+  shapes: (2^15, 8192) uint32 rows with int32 values (and keys in
+  [0, 1000)), (38 837, 6912) uint32 tiles with int32 values, 43 692
+  assigned slots of which 4 855 padding; each kernel is then held to its
+  plain version (exact) and timed beside ``torch.sort(dim=1)`` for the
+  rows; the row sort over int32, float32 with ±0 / NaN / ±inf, int64,
+  float64 and uint16 keys and the KV row sort at L = 16384 are checked at
+  2^20 keys;
 * the out-of-core path, ``repro_torch.oocsort``, on 2^30 uint32 keys with an
   int32 index value (8 GiB of 8-byte records) in chunks of 2^28, kway 4,
   tile 4096 (4 runs, one merge round): ``merge_check`` holds the merge
@@ -38,7 +51,8 @@ the repository's ``src/`` beside it, the script exits non-zero and prints
 no result.
 
 ``--log2n`` shrinks the main sizes (the ooc input is 2^(log2n + 2) keys in
-chunks of 2^log2n, the spill budget 2^(log2n + 6) bytes): a quick check;
+chunks of 2^log2n, the spill budget 2^(log2n + 6) bytes, the library
+inputs 2^log2n keys): a quick check;
 ``--reps`` sets the timed repetitions.  Neither is needed for the full run,
 which runs every phase at full size.
 """
@@ -359,6 +373,255 @@ def check_local_sort(torch, rec, reps):
           "shape": [64, length], "equal": True})
     return dict(ms=total_ms, plain_ms=total_plain, bound_ms=total_bound,
                 max_abs_err=max(err, e))
+
+
+# --------------------------------------------------------------------------
+# library phase: the reference's library-surface kernels (row sorts, tile
+# multisplit, descriptor-driven histogram) at the (4,0) config's shapes
+# --------------------------------------------------------------------------
+
+#: Table 3's (4,0) config: d = 8, KPB 6912
+LIB_KPB = 6912
+LIB_ROW = 8192
+
+
+def _uint_bits(torch, t):
+    """Unsigned keys as signed tensors in the same order (top bit flipped):
+    what ``torch.sort`` can take for ``uint32``."""
+    from repro_torch.core import bijection
+    from repro_torch.kernels.ref import int_view
+    return bijection.sortable(int_view(t))
+
+
+def library_inputs(torch, np, log2n, dev):
+    """The library phase's inputs from a seed: (2^log2n / 8192, 8192) uint32
+    row keys with int32 values and a duplicate-heavy set in [0, 1000);
+    (⌈2^log2n / 6912⌉, 6912) uint32 tiles with int32 values; a slot table
+    of a seeded permutation of the tiles followed by T/8 padding slots with
+    valid 0."""
+    rng = np.random.default_rng(1614)
+    n = 1 << log2n
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    rows = n // LIB_ROW
+    tiles = -(-n // LIB_KPB)
+    pad = -(-tiles // 8)
+    tile_idx = np.concatenate([rng.permutation(tiles),
+                               np.zeros(pad, np.int64)]).astype(np.int32)
+    valid = np.concatenate([np.ones(tiles, np.int32), np.zeros(pad,
+                                                                np.int32)])
+    return dict(
+        row_keys=put(rng.integers(0, 2**32, (rows, LIB_ROW), dtype=np.uint32)),
+        dup_keys=put(rng.integers(0, 1000, (rows, LIB_ROW)).astype(np.uint32)),
+        row_vals=torch.arange(rows * LIB_ROW, dtype=torch.int32,
+                              device=dev).reshape(rows, LIB_ROW),
+        tile_keys=put(rng.integers(0, 2**32, (tiles, LIB_KPB),
+                                   dtype=np.uint32)),
+        tile_vals=torch.arange(tiles * LIB_KPB, dtype=torch.int32,
+                               device=dev).reshape(tiles, LIB_KPB),
+        tile_idx=put(tile_idx), valid=put(valid))
+
+
+def library_counted(torch, inp):
+    """The library path's counted run: every count set to 0, each public
+    entry point called once through ``repro_torch.kernels`` (the KV row
+    sort on both key sets), the counts read; then the results checked by
+    the reference tests' own means."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.kernels.ref import int_view
+    keys, dup, vals = inp["row_keys"], inp["dup_keys"], inp["row_vals"]
+    tk, tv = inp["tile_keys"], inp["tile_vals"]
+    torch.cuda.synchronize()
+    reset_counts()
+    rows = K.bitonic_sort_rows(keys)
+    kv = K.bitonic_sort_rows_kv(keys, vals)
+    kv_dup = K.bitonic_sort_rows_kv(dup, vals)
+    split = K.tile_multisplit(tk, 24, 8, 32)
+    split_kv = K.tile_multisplit_kv(tk, tv, 24, 8, 32, 32)
+    hist = K.assigned_histogram(tk, inp["tile_idx"], inp["valid"], 24, 8)
+    torch.cuda.synchronize()
+    counts = dict(COUNTS)
+    for name in ("bitonic_rows", "bitonic_rows_kv", "multisplit",
+                 "multisplit_kv", "assigned_hist"):
+        need(counts[name] > 0, f"library: {name} was not launched: {counts}")
+    # rows ascending in unsigned order, equal to torch.sort of the same keys
+    want = torch.sort(_uint_bits(torch, keys), dim=1).values
+    need(torch.equal(_uint_bits(torch, rows), want),
+         "library: bitonic_sort_rows != torch.sort(dim=1)")
+    # KV: keys sorted, values a per-row permutation carrying their keys
+    for label, src, (ok, ov) in (("uniform", keys, kv), ("dup", dup, kv_dup)):
+        need(torch.equal(_uint_bits(torch, ok), torch.sort(
+            _uint_bits(torch, src), dim=1).values),
+             f"library: bitonic_sort_rows_kv ({label}) keys unsorted")
+        need(torch.equal(torch.sort(ov, dim=1).values, vals),
+             f"library: bitonic_sort_rows_kv ({label}) values not a "
+             f"permutation of each row")
+        need(torch.equal(int_view(src).reshape(-1)[ov.reshape(-1).long()],
+                         int_view(ok).reshape(-1)),
+             f"library: bitonic_sort_rows_kv ({label}) pairs broken")
+    del rows, kv, kv_dup
+    # multisplit: histograms = the tiles' digit counts, digits non-decreasing
+    # per tile, keys a per-tile permutation, ranks restart at each run
+    sk, sd, rk, sh = split
+    digits = ((int_view(tk) >> 24) & 255).long()
+    counted = torch.zeros_like(sh).scatter_add_(
+        1, digits, torch.ones_like(digits, dtype=torch.int32))
+    need(torch.equal(sh, counted), "library: multisplit histogram wrong")
+    need(bool((sd[:, 1:] >= sd[:, :-1]).all()),
+         "library: multisplit digits not digit-major")
+    need(torch.equal(torch.sort(int_view(sk), dim=1).values,
+                     torch.sort(int_view(tk), dim=1).values),
+         "library: multisplit keys not a permutation of each tile")
+    need(torch.equal(sd, ((int_view(sk) >> 24) & 255).to(torch.int32)),
+         "library: multisplit digits do not match its keys")
+    need(bool((rk[:, 0] == 0).all()) and bool(
+        ((rk[:, 1:] == rk[:, :-1] + 1) | (sd[:, 1:] != sd[:, :-1])).all()),
+         "library: multisplit ranks do not count within runs")
+    need(all(torch.equal(a, b) for a, b in zip(
+        (sk, sd, rk, sh), (split_kv[0],) + tuple(split_kv[2:]))),
+         "library: multisplit_kv keys/digits/ranks/hist != multisplit's")
+    need(torch.equal(int_view(tk).reshape(-1)[split_kv[1].reshape(-1).long()],
+                     int_view(split_kv[0]).reshape(-1)),
+         "library: multisplit_kv values do not carry their keys")
+    # assigned: slot g = the histogram of its tile, padding slots zero
+    t = tk.shape[0]
+    need(torch.equal(hist[:t], sh[inp["tile_idx"][:t].long()]),
+         "library: assigned_histogram rows != their tiles' histograms")
+    need(not bool(hist[t:].any()), "library: padding slots not zero")
+    del split, split_kv, sk, sd, rk, sh, digits, counted, hist
+    torch.cuda.empty_cache()
+    emit({"phase": "library_main_path", "rows": list(keys.shape),
+          "tiles": list(tk.shape), "slots": inp["tile_idx"].numel(),
+          "launches": {k: counts[k] for k in (
+              "bitonic_rows", "bitonic_rows_kv", "multisplit",
+              "multisplit_kv", "assigned_hist")}, "equal": True})
+    return counts
+
+
+def _bits_err(torch, got, want) -> int:
+    from repro_torch.kernels.ref import int_view
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    need(all(a.dtype == b.dtype for a, b in zip(got, want)),
+         "kernel and plain version differ in dtype")
+    return max_abs_err(torch, [(int_view(a), int_view(b))
+                               for a, b in zip(got, want)])
+
+
+def library_check(torch, label, kernel, plain, args, reps, nbytes,
+                  library=None, **extra):
+    """One library kernel against its plain version on the same inputs
+    (exact), then timed: kernel (median of ``reps``), plain (one run), the
+    library call where there is one."""
+    err = _bits_err(torch, kernel(*args), plain(*args))
+    need(err == 0, f"{label} != plain version")
+    res = dict(max_abs_err=err, ms=cuda_ms(torch, lambda: kernel(*args), reps),
+               plain_ms=cuda_ms(torch, lambda: plain(*args), 1),
+               bound_ms=bound_ms(nbytes), bound_bytes=nbytes,
+               library_ms=(cuda_ms(torch, library, reps) if library
+                           else None))
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_check", "kernel": label, "equal": True, **extra,
+          **res})
+    return res
+
+
+def library_phase(torch, np, log2n, reps, dev):
+    """The library phase: the counted run, then each kernel against its
+    plain version and timed at full shape, then equality-only checks over
+    other key dtypes and the widest local-sort class at 2^20 keys."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref
+    inp = library_inputs(torch, np, log2n, dev)
+    counts = library_counted(torch, inp)
+    keys, dup, vals = inp["row_keys"], inp["dup_keys"], inp["row_vals"]
+    n = keys.numel()
+    lib_keys = _uint_bits(torch, keys)
+    out = {}
+    out["bitonic_rows"] = library_check(
+        torch, "bitonic_rows", K.bitonic_sort_rows, ref.bitonic_rows_ref,
+        (keys,), reps, 2 * n * 4,
+        library=lambda: torch.sort(lib_keys, dim=1), shape=list(keys.shape))
+    out["bitonic_rows_kv"] = library_check(
+        torch, "bitonic_rows_kv", K.bitonic_sort_rows_kv,
+        ref.bitonic_rows_ref, (keys, vals), reps, 2 * n * 8,
+        library=lambda: torch.sort(lib_keys, dim=1), shape=list(keys.shape))
+    dup_res = library_check(
+        torch, "bitonic_rows_kv", K.bitonic_sort_rows_kv,
+        ref.bitonic_rows_ref, (dup, vals), reps, 2 * n * 8, keys_in="[0,1000)",
+        shape=list(keys.shape))
+    out["bitonic_rows_kv"]["dup_ms"] = dup_res["ms"]
+    del lib_keys
+    tk, tv = inp["tile_keys"], inp["tile_vals"]
+    t, kpb = tk.shape
+    nt = tk.numel()
+    hist_bytes = t * 256 * 4
+    out["multisplit"] = library_check(
+        torch, "multisplit", K.tile_multisplit,
+        lambda k, *a: ref.tile_multisplit_kv_ref(k, None, *a),
+        (tk, 24, 8, 32), reps, nt * 4 + nt * 12 + hist_bytes,
+        shape=list(tk.shape))
+    out["multisplit_kv"] = library_check(
+        torch, "multisplit_kv", K.tile_multisplit_kv,
+        ref.tile_multisplit_kv_ref, (tk, tv, 24, 8, 32, 32), reps,
+        nt * 4 + nt * 12 + hist_bytes + 2 * nt * 4, shape=list(tk.shape))
+    idx, valid = inp["tile_idx"], inp["valid"]
+    g = idx.numel()
+    out["assigned_hist"] = library_check(
+        torch, "assigned_hist", K.assigned_histogram,
+        ref.assigned_histogram_ref, (tk, idx, valid, 24, 8), reps,
+        int(valid.ne(0).sum()) * kpb * 4 + g * 256 * 4, slots=g)
+    for key in list(inp):
+        del inp[key]
+    del keys, dup, vals, tk, tv, idx, valid
+    torch.cuda.empty_cache()
+    library_dtypes(torch, np, dev)
+    return out, counts
+
+
+def library_dtypes(torch, np, dev):
+    """Equality-only checks at 2^20 keys: the row sort over other key
+    dtypes (floats with ±0, NaN and ±inf rows) and the KV row sort at
+    L = 16384, the (4,0) config's widest local-sort class (∂̂ 9216)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(1615)
+    shape = (128, LIB_ROW)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    f32 = rng.standard_normal(shape).astype(np.float32)
+    f32[0] = np.resize(np.array([0.0, -0.0], np.float32), LIB_ROW)
+    f32[1, 100] = np.nan
+    f32[2, ::3] = np.array([0x7FC00001], np.uint32).view(np.float32)[0]
+    f32[2, 1::3] = -np.inf
+    f32[3] = np.resize(np.array([np.inf, -np.inf, -0.0], np.float32),
+                       LIB_ROW)
+    cases = {
+        "int32": put(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                     .astype(np.int32)),
+        "float32_specials": put(f32),
+        "int64": put(rng.integers(-2**63, 2**63 - 1, shape, dtype=np.int64)),
+        "float64": put(rng.standard_normal(shape)),
+        "uint16": put(rng.integers(0, 2**16, shape, dtype=np.uint16)),
+    }
+    for label, keys in cases.items():
+        err = _bits_err(torch, K.bitonic_sort_rows(keys),
+                        ref.bitonic_rows_ref(keys))
+        need(err == 0, f"bitonic_rows ({label}) != plain version")
+    keys = put(rng.integers(0, 2**32, (64, 16384), dtype=np.uint32))
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=dev).reshape(keys.shape)
+    err = _bits_err(torch, K.bitonic_sort_rows_kv(keys, vals),
+                    ref.bitonic_rows_ref(keys, vals))
+    need(err == 0, "bitonic_rows_kv (L = 16384) != plain version")
+    emit({"phase": "library_dtypes", "keys": 1 << 20,
+          "rows": sorted(cases), "kv_row_len": 16384, "equal": True})
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -900,6 +1163,9 @@ def run(args) -> int:
     del rec_k, keys, vals
     torch.cuda.empty_cache()
 
+    # library phase: the library-surface kernels (their own counted run)
+    lib_res, lib_counts = library_phase(torch, np, args.log2n, args.reps, dev)
+
     # phase 4: the main path, counted
     cases = []
     for label, k, with_values in make_cases(torch, np, args.log2n, dev):
@@ -947,6 +1213,17 @@ def run(args) -> int:
              bound_by="bytes",
              library_ms=kmerge_res["torch_sort_stable_ms"]),
     ]
+    lib_src = {"bitonic_rows": ("bitonic_rows.cu", "bitonic.py:90"),
+               "bitonic_rows_kv": ("bitonic_rows.cu", "bitonic.py:100"),
+               "multisplit": ("multisplit.cu", "multisplit.py:87"),
+               "multisplit_kv": ("multisplit.cu", "multisplit.py:98"),
+               "assigned_hist": ("histogram.cu", "assigned.py:26")}
+    for name, (cu, line) in lib_src.items():
+        kernels.append(dict(
+            name=name, route="cuda", source=src + cu,
+            replaces="src/repro/kernels/" + line, launches=lib_counts[name],
+            **_k(lib_res[name]), bound_by="bytes",
+            library_ms=lib_res[name]["library_ms"]))
     emit({"phase": "summary", "main_path": "uint32_uniform_kv",
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],
           "torch_sort_ms": main["torch_sort_ms"]})

@@ -24,12 +24,17 @@ from pathlib import Path
 import torch
 
 COUNTS = {"histogram": 0, "fused_pass": 0, "local_sort": 0, "merge_rows": 0,
-          "merge": 0, "host_reads": 0}
+          "merge": 0, "bitonic_rows": 0, "bitonic_rows_kv": 0,
+          "multisplit": 0, "multisplit_kv": 0, "assigned_hist": 0,
+          "host_reads": 0}
 
-#: kernel name -> source file under csrc/
+#: kernel library name -> source file under csrc/ (the library-surface
+#: counters are one per wrapper: ``*_kv`` count the same libraries' value
+#: launches, ``assigned_hist`` the histogram library's second entry point)
 SOURCES = {"histogram": "histogram.cu", "fused_pass": "fused_pass.cu",
            "local_sort": "local_sort.cu", "merge_rows": "merge_rows.cu",
-           "merge": "merge.cu"}
+           "merge": "merge.cu", "bitonic_rows": "bitonic_rows.cu",
+           "multisplit": "multisplit.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,13 +1,24 @@
-"""Stable local sort: port of ``repro.kernels.bitonic.bitonic_sort_rows_stable``.
+"""Bitonic row sorts: port of ``repro.kernels.bitonic``.
 
-Both entries launch ``csrc/local_sort.cu`` on CUDA tensors (one CTA sorts one
-row of (key, position) pairs with a bitonic network in shared memory) and
-run the plain versions of ``ref.py`` on CPU tensors:
+The stable local sort launches ``csrc/local_sort.cu`` on CUDA tensors (one
+CTA sorts one row of (key, position) pairs with a bitonic network in shared
+memory):
 
   * ``bitonic_sort_rows_stable`` — the reference's (S, L) table contract;
   * ``sort_segments_stable``     — the main path: one launch per size
     class sorts buckets of the key buffer in place, without a padded table
     in device memory.
+
+The library's min/max network launches ``csrc/bitonic_rows.cu``:
+
+  * ``bitonic_sort_rows``    — (S, L) keys sorted ascending;
+  * ``bitonic_sort_rows_kv`` — the same network moving values by the
+    reference's move mask (not stable under duplicate keys).
+
+These take the key's own dtype: bool, (u)int8/16/32/64, float16, bfloat16,
+float32 and float64, with XLA's min/max semantics for floats (see
+``ref.bitonic_rows_ref``).  On CPU tensors every entry runs its plain
+version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -21,17 +32,68 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ROWS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P]
 _SEG_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_NET_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 #: the opt-in shared memory one CTA may use on Hopper
 SMEM_LIMIT = 232448
+#: ref's compare kinds -> csrc/bitonic_rows.cu's RowKind
+_NET_KIND = {"u": 0, "s": 1, "f16": 2, "bf16": 3, "f32": 4, "f64": 5}
 
 
-def _check_len(length: int, key_bytes: int) -> None:
+def _check_len(length: int, key_bytes: int, lane_bytes: int = 4) -> None:
+    """A row of ``length`` keys plus ``lane_bytes`` per key (positions or
+    values) must fit one CTA's shared memory."""
     if length & (length - 1):
         raise ValueError("row length must be a power of two")
-    need = -(-length * key_bytes // 8) * 8 + 4 * length
+    need = -(-length * key_bytes // 8) * 8 + lane_bytes * length
     if need > SMEM_LIMIT:
         raise ValueError(f"a row of {length} keys needs {need} bytes of shared "
                          f"memory, over the {SMEM_LIMIT} a CTA can hold")
+
+
+def _network(keys: torch.Tensor, vals):
+    kind = ref.row_kind(keys.dtype)
+    if vals is not None and vals.shape != keys.shape:
+        raise ValueError("keys and values must have the same (S, L) shape")
+    if _build.on_cpu(keys):
+        return ref.bitonic_rows_ref(keys, vals)
+    s, length = keys.shape
+    val_bytes = 0 if vals is None else vals.element_size()
+    _check_len(length, keys.element_size(), val_bytes)
+    keys = keys.contiguous()
+    vals = None if vals is None else vals.contiguous()
+    _build.check_cuda(keys, *(() if vals is None else (vals,)))
+    out_k = torch.empty_like(keys)
+    out_v = None if vals is None else torch.empty_like(vals)
+    if s == 0 or length < 2:
+        out_k.copy_(keys)
+        if vals is not None:
+            out_v.copy_(vals)
+    else:
+        fn = _build.function("bitonic_rows", "bitonic_rows_launch", _NET_ARGS)
+        with torch.cuda.device(keys.device):
+            rc = fn(_build.ptr(keys), _P(None if vals is None else
+                                         vals.data_ptr()),
+                    _build.ptr(out_k), _P(None if vals is None else
+                                          out_v.data_ptr()),
+                    _NET_KIND[kind], keys.element_size(), val_bytes, s,
+                    length, _build.stream_handle(keys.device))
+        _build.check("bitonic_rows", rc)
+        _build.COUNTS["bitonic_rows" if vals is None else
+                      "bitonic_rows_kv"] += 1
+    return out_k if vals is None else (out_k, out_v)
+
+
+def bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
+    """Sort each row of (S, L) keys ascending; L a power of two."""
+    return _network(keys, None)
+
+
+def bitonic_sort_rows_kv(keys: torch.Tensor, vals: torch.Tensor):
+    """Sort (S, L) rows by key through the same network, carrying values of
+    any 1, 2, 4 or 8-byte dtype; L a power of two.  With duplicate keys a
+    value moves iff its lane's key changed (the paper's non-stable pair
+    semantics)."""
+    return _network(keys, vals)
 
 
 def bitonic_sort_rows_stable(keys: torch.Tensor, idx: torch.Tensor):

@@ -10,7 +10,8 @@
 //      earlier rows of the same region (below);
 //   4. walks its slice again 32 keys at a time, in order: __match_any_sync
 //      gives each lane its rank among equal digits of the step, a running
-//      per-warp digit counter the rest, so the rank is stable;
+//      per-warp digit counter the rest, so the rank is stable (the stable
+//      in-block rank of common.cuh, shared with csrc/multisplit.cu);
 //   5. scatters key and every value leaf to
 //        base_excl[seg, digit] + carry[digit] + rank   (partition rows),
 //      and copy-through rows (active == 0) copy key and values to their own
@@ -115,35 +116,25 @@ fused_pass_kernel(const K* __restrict__ src_keys, K* __restrict__ dst_keys,
   __syncthreads();
 
   // 1. load + per-warp digit counts over the warp's contiguous slice
-  const int per = ((count + kPassWarps - 1) / kPassWarps + 31) / 32 * 32;
+  const int per = warp_slice_per(count, kPassWarps);
   const int wbeg = warp * per;
   const int wend = min(wbeg + per, count);
   int* mine = wcnt + warp * r;
   for (int base = wbeg; base < wend; base += 32) {
     const int i = base + lane;
     const bool valid = i < wend;
-    const unsigned want = __ballot_sync(kFullMask, valid);
+    unsigned d = 0;
     if (valid) {
       const K key = src_keys[off + i];
       skeys[i] = key;
-      const unsigned d = digit_of(key, lo, width);
-      const unsigned peers = __match_any_sync(want, d);
-      if (lane == __ffs(peers) - 1) mine[d] += __popc(peers);
+      d = digit_at(key, lo, width, true);
     }
-    __syncwarp();
+    warp_count_step(mine, d, valid, lane);
   }
   __syncthreads();
 
   // 2. exclusive offsets across warps per digit; block histogram
-  for (int d = tid; d < r; d += blockDim.x) {
-    int run = 0;
-    for (int w = 0; w < kPassWarps; ++w) {
-      const int c = wcnt[w * r + d];
-      wcnt[w * r + d] = run;
-      run += c;
-    }
-    bhist[d] = run;
-  }
+  warps_exclusive(wcnt, kPassWarps, r, bhist);
   __syncthreads();
 
   // 3. in-segment carry by decoupled look-back in descriptor order
@@ -189,32 +180,26 @@ fused_pass_kernel(const K* __restrict__ src_keys, K* __restrict__ dst_keys,
   for (int base = wbeg; base < wend; base += 32) {
     const int i = base + lane;
     const bool valid = i < wend;
-    const unsigned want = __ballot_sync(kFullMask, valid);
     K key = 0;
-    unsigned d = 0, peers = 0;
-    int before = 0;
+    unsigned d = 0;
     if (valid) {
       key = skeys[i];
-      d = digit_of(key, lo, width);
-      peers = __match_any_sync(want, d);
-      before = mine[d];
+      d = digit_at(key, lo, width, true);
     }
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) mine[d] = before + __popc(peers);
-    __syncwarp();
+    const int rank = warp_rank_step(mine, d, valid, lane);
     int bin = -1, bin2 = -1;
     if (valid) {
       const long long dest = static_cast<long long>(bex[d]) + carry[d] +
-                             before + __popc(peers & lanemask_lt(lane));
+                             rank;
       dst_keys[dest] = key;
       for (int v = 0; v < leaves.count; ++v)
         copy_elem(leaves.src[v], leaves.dst[v], leaves.bytes[v], off + i,
                   dest);
       const int sid = nsid[d];
       if (sid < a_max) {
-        if (nwidth > 0) bin = sid * r + digit_of(key, nlo, nwidth);
+        if (nwidth > 0) bin = sid * r + digit_at(key, nlo, nwidth, true);
         if (lookahead && n2width > 0)
-          bin2 = sid * r + digit_of(key, n2lo, n2width);
+          bin2 = sid * r + digit_at(key, n2lo, n2width, true);
       }
     }
     warp_count(hist, bin, lane);

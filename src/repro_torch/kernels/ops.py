@@ -1,12 +1,13 @@
-"""The local-sort finish around the stable sort kernel: port of
-``repro.kernels.ops``.
+"""The compositions around the kernels: port of ``repro.kernels.ops``.
 
   * ``local_sort_class_plan`` — power-of-two size classes (§4.2's local
                                 sort configurations), unchanged;
   * ``segmented_local_sort``  — one launch per class sorts the flagged
                                 buckets in place;
   * ``apply_run_copies``      — the value gather through the permutation
-                                the local sort returns.
+                                the local sort returns;
+  * ``kernel_local_sort``     — (S, L) padded rows through the row network;
+  * ``tile_histogram_pass``   — the standalone histogram sweep.
 
 The reference returned (src, dst) run copies over padded (rows, L) tables;
 here the kernel sorts keys in place and writes an O(n) ``perm`` (each slot's
@@ -20,7 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bitonic import sort_segments_stable
+from repro_torch.kernels import ref
+from repro_torch.kernels.bitonic import bitonic_sort_rows, sort_segments_stable
+from repro_torch.kernels.histogram import radix_histogram
 
 
 def static_nonzero(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -80,3 +83,35 @@ def segmented_local_sort(keys: torch.Tensor, seg_start: torch.Tensor,
         sizes_c = torch.where(valid, seg_size[sel], 0)
         sort_segments_stable(keys, perm, starts_c, sizes_c, l)
         prev_l = l
+
+
+def kernel_local_sort(keys: torch.Tensor) -> torch.Tensor:
+    """Local sort of (S, L) padded buckets through the row network."""
+    return bitonic_sort_rows(keys)
+
+
+def tile_histogram_pass(keys: torch.Tensor, shift: int, width: int,
+                        kpb: int = 8192):
+    """Histogram step of a pass: (n,) integer keys -> ((T, r) int32 tile
+    histograms, (r,) int32 total).  The keys are padded to whole tiles with
+    the all-ones sentinel, whose count comes off digit ``r - 1`` of the
+    total, as in the reference.
+
+    Example — the top-byte digits of two uint32 keys::
+
+        >>> import numpy as np, torch
+        >>> from repro_torch.kernels import tile_histogram_pass
+        >>> x = torch.from_numpy(np.array([0x01020304, 0xFF000000], np.uint32))
+        >>> hist, total = tile_histogram_pass(x, shift=24, width=8, kpb=8)
+        >>> int(total[0x01]), int(total[0xFF]), int(total.sum())
+        (1, 1, 2)
+    """
+    n = keys.shape[0]
+    pad = (-n) % kpb
+    b, _ = ref.signed_bits(keys)
+    padded = torch.cat([b, b.new_full((pad,), -1)]).view(keys.dtype)
+    hist = radix_histogram(padded.reshape(-1, kpb), shift, width)
+    total = hist.sum(0, dtype=torch.int32)
+    if pad:
+        total[(1 << width) - 1] -= pad
+    return hist, total

@@ -20,18 +20,58 @@ import torch
 from repro_torch.core.bijection import sortable
 
 
-def _digits(keys: torch.Tensor, lo: int, width: int) -> torch.Tensor:
+#: unsigned (and bool) dtypes -> the signed twin that carries their bits
+_SIGNED_TWIN = {torch.bool: torch.int8, torch.uint8: torch.int8,
+                torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def signed_bits(t: torch.Tensor):
+    """``(view, logical)``: an unsigned (or bool) tensor viewed as its signed
+    twin, whose shifts must then be logical, or a signed tensor as it is.
+
+    PyTorch has no ``>>``, ``minimum`` or gather for ``uint32`` / ``uint64``,
+    so the library entry points that take a key's own dtype compute on this
+    view; the reference shifts unsigned keys logically and signed ones
+    arithmetically, which differ where ``shift + width`` passes the top bit.
+    """
+    twin = _SIGNED_TWIN.get(t.dtype)
+    return (t, False) if twin is None else (t.view(twin), True)
+
+
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def int_view(t: torch.Tensor) -> torch.Tensor:
+    """Any 1, 2, 4 or 8-byte tensor viewed as the signed integer of its
+    size (the row network compares and moves bits)."""
+    return t if t.dtype in _INT_OF_SIZE.values() else t.view(
+        _INT_OF_SIZE[t.element_size()])
+
+
+def _digits(keys: torch.Tensor, lo: int, width: int,
+            logical: bool = False) -> torch.Tensor:
+    """int64 digits ``(keys >> lo) & (2^width - 1)`` of a signed tensor:
+    an arithmetic shift, or a logical one for the bits of an unsigned key
+    (``signed_bits``).  A shift past the top bit gives the sign fill or 0,
+    as XLA's shifts do."""
+    bits = keys.element_size() * 8
     # widen before masking: an 8-bit mask does not fit an int8 carrier
-    return (keys >> lo).to(torch.int64) & ((1 << width) - 1)
+    d = keys.to(torch.int64) >> min(lo, 63)
+    if logical and lo:
+        d = d & ((1 << (bits - lo)) - 1) if lo < bits else torch.zeros_like(d)
+    return d & ((1 << width) - 1)
 
 
 def radix_histogram_ref(keys: torch.Tensor, shift: int,
                         width: int) -> torch.Tensor:
-    """(T, KPB) carrier keys -> (T, 2^width) int32 per-tile digit counts."""
+    """(T, KPB) integer keys -> (T, 2^width) int32 per-tile digit counts
+    (unsigned dtypes shift logically, signed ones arithmetically)."""
+    keys, logical = signed_bits(keys)
     t = keys.shape[0]
     r = 1 << width
     rows = torch.arange(t, device=keys.device).unsqueeze(1)
-    flat = (rows * r + _digits(keys, shift, width)).reshape(-1)
+    flat = (rows * r + _digits(keys, shift, width, logical)).reshape(-1)
     out = torch.zeros(t * r, dtype=torch.int32, device=keys.device)
     out.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
     return out.reshape(t, r)
@@ -116,6 +156,226 @@ def bitonic_sort_rows_stable_ref(keys: torch.Tensor, idx: torch.Tensor):
     k1, i1 = torch.gather(keys, 1, o1), torch.gather(idx, 1, o1)
     o2 = torch.sort(sortable(k1), dim=1, stable=True).indices
     return torch.gather(k1, 1, o2), torch.gather(i1, 1, o2)
+
+
+# ---- the library surface's oracles (the reference's ``ref.py``) ----------
+
+def tile_multisplit_ref(keys: torch.Tensor, shift: int, width: int):
+    """(T, KPB) keys -> (keys digit-major within each tile, by a stable
+    order; the sorted digits; each output slot's rank in its digit run; the
+    (T, 2^width) histograms) — the reference's oracle, keys untruncated."""
+    order, digit = _tile_order(keys, shift, width)
+    return _multisplit_outputs(keys, order, digit, width)
+
+
+def bitonic_sort_rows_ref(keys: torch.Tensor, values=None):
+    """(S, L) -> rows sorted ascending; values permuted alongside by a
+    *stable* argsort — the reference's oracle, which is not the KV
+    kernel's contract under duplicate keys (see ``bitonic_rows_ref``)."""
+    b = int_view(keys)
+    kind = row_kind(keys.dtype)
+    key = _row_order_key(b, kind)
+    if kind not in ("u", "s"):
+        # XLA's sort comparator on the CPU: every NaN last, -0 == +0, and
+        # f32 / f64 / bf16 subnormals equal to zero (flushed)
+        exp, mant = _FLOAT_BITS[kind]
+        mag = b & ~torch.iinfo(b.dtype).min
+        zero = mag == 0 if kind == "f16" else mag < (1 << mant)
+        key = torch.where(mag > exp, torch.iinfo(b.dtype).max,
+                          torch.where(zero, 0, key))
+    order = torch.sort(key, dim=1, stable=True).indices
+    out = torch.gather(b, 1, order).view(keys.dtype)
+    if values is None:
+        return out
+    return out, torch.gather(values, 1, order)
+
+
+def onehot_matmul_hist_ref(keys: torch.Tensor, shift: int, width: int):
+    """Flat (2^width,) histogram over all tiles."""
+    return radix_histogram_ref(keys, shift, width).sum(0, dtype=torch.int32)
+
+
+# ---- the library kernels' plain versions --------------------------------
+
+#: the compare kinds of the row network, by key dtype
+_ROW_KIND = {torch.bool: "u", torch.uint8: "u", torch.uint16: "u",
+             torch.uint32: "u", torch.uint64: "u", torch.int8: "s",
+             torch.int16: "s", torch.int32: "s", torch.int64: "s",
+             torch.float16: "f16", torch.bfloat16: "bf16",
+             torch.float32: "f32", torch.float64: "f64"}
+#: float kinds: (exponent mask = +inf's bits, mantissa bits)
+_FLOAT_BITS = {"f16": (0x7C00, 10), "bf16": (0x7F80, 7),
+               "f32": (0x7F800000, 23), "f64": (0x7FF0000000000000, 52)}
+
+
+def row_kind(dtype: torch.dtype) -> str:
+    kind = _ROW_KIND.get(dtype)
+    if kind is None:
+        raise TypeError(f"the row network does not take {dtype} keys")
+    return kind
+
+
+def _row_order_key(b: torch.Tensor, kind: str) -> torch.Tensor:
+    """A signed tensor whose order is the keys' order (floats: totalOrder,
+    -0 below +0), from the signed bit view ``b``."""
+    lo = torch.iinfo(b.dtype).min
+    if kind == "u":
+        return b ^ lo
+    if kind == "s":
+        return b
+    return torch.where(b < 0, b ^ ~lo, b)
+
+
+def _row_network_prepare(b: torch.Tensor, kind: str) -> torch.Tensor:
+    """What the reference's first min/max stage does to float bits besides
+    ordering them: XLA on the CPU flushes subnormal f32 / f64 / bf16
+    operands to a zero of their sign (f16 is widened to f32 first and keeps
+    them), and turns every bf16 NaN into the quiet NaN of its sign.  Every
+    lane passes a min or a max in every stage, so doing this once before
+    the network (rows of L >= 2) is the same."""
+    if kind in ("u", "s", "f16"):
+        return b
+    lo = torch.iinfo(b.dtype).min
+    exp, mant = _FLOAT_BITS[kind]
+    mag = b & ~lo
+    b = torch.where((mag != 0) & (mag < (1 << mant)), b & lo, b)
+    if kind == "bf16":
+        b = torch.where(mag > exp, (b & lo) | 0x7FC0, b)
+    return b
+
+
+def bitonic_rows_ref(keys: torch.Tensor, vals=None):
+    """The reference's row network replayed stage by stage: ``size_log``
+    ascending, ``stride_log`` descending, partner ``i ^ stride``, lane i
+    keeps ``min(k_i, k_p)`` when ``ascending == is_lower`` and
+    ``max(k_i, k_p)`` otherwise; a value moves to the partner's iff its
+    lane's key compares ``!=`` after the step (not stable).
+
+    ``min``/``max`` are XLA's: NaN propagates (with one NaN operand, that
+    NaN; with two, ``min`` keeps its own operand unless it is negative and
+    ``max`` unless it is positive), ``min(+0, -0) = -0``, ``max = +0``.
+    Returns the sorted keys, or ``(keys, values)`` when ``vals`` is given.
+    """
+    kind = row_kind(keys.dtype)
+    b = int_view(keys)
+    v = None if vals is None else int_view(vals)
+    s, length = b.shape
+    if length & (length - 1):
+        raise ValueError("row length must be a power of two")
+    if length >= 2:
+        b = _row_network_prepare(b, kind)
+    is_float = kind not in ("u", "s")
+    if is_float:
+        lo = torch.iinfo(b.dtype).min
+        exp = _FLOAT_BITS[kind][0]
+    idx = torch.arange(length, device=b.device)
+    for size_log in range(1, length.bit_length()):
+        size = 1 << size_log
+        for stride_log in range(size_log - 1, -1, -1):
+            part = idx ^ (1 << stride_log)
+            take_min = ((idx & size) == 0) == (part > idx)
+            y = b[:, part]
+            ox, oy = _row_order_key(b, kind), _row_order_key(y, kind)
+            min_x, max_x = ox <= oy, ox >= oy
+            if is_float:
+                xn, yn = (b & ~lo) > exp, (y & ~lo) > exp
+                xneg, both = b < 0, ~xn & ~yn
+                min_x = (xn & (~yn | ~xneg)) | (both & min_x)
+                max_x = (xn & (~yn | xneg)) | (both & max_x)
+            new = torch.where(torch.where(take_min, min_x, max_x), b, y)
+            if v is not None:
+                moved = new != b
+                if is_float:
+                    moved = (((new & ~lo) > exp) | ((b & ~lo) > exp) |
+                             (moved & (((new | b) & ~lo) != 0)))
+                v = torch.where(moved, v[:, part], v)
+            b = new
+    out = b.view(keys.dtype)
+    return out if vals is None else (out, v.view(vals.dtype))
+
+
+#: key and value dtypes the reference's multisplit accepts (its 16-bit
+#: halves overflow the 0xFFFF mask constant for int8 / uint8 / int16)
+MULTISPLIT_DTYPES = (torch.uint16, torch.int32, torch.uint32, torch.int64,
+                     torch.uint64)
+
+
+def check_multisplit_dtypes(keys: torch.Tensor, vals=None) -> None:
+    for t in (keys,) if vals is None else (keys, vals):
+        if t.dtype not in MULTISPLIT_DTYPES:
+            raise TypeError(f"multisplit takes {MULTISPLIT_DTYPES} keys "
+                            f"and values, got {t.dtype}")
+
+
+def _tile_order(keys: torch.Tensor, shift: int, width: int):
+    b, logical = signed_bits(keys)
+    digit = _digits(b, shift, width, logical)
+    return torch.sort(digit, dim=1, stable=True).indices, digit
+
+
+def _multisplit_outputs(keys, order, digit, width):
+    b, _ = signed_bits(keys)
+    t, kpb = b.shape
+    r = 1 << width
+    sd = torch.gather(digit, 1, order)
+    hist = torch.zeros((t, r), dtype=torch.int32, device=b.device)
+    hist.scatter_add_(1, digit, torch.ones_like(digit, dtype=torch.int32))
+    excl = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+    pos = torch.arange(kpb, dtype=torch.int32, device=b.device)
+    rank = pos - torch.gather(excl, 1, sd)
+    return (torch.gather(b, 1, order).view(keys.dtype), sd.to(torch.int32),
+            rank, hist)
+
+
+def low_bits_mask(nbits: int, nbytes: int) -> int:
+    """The bits of an ``nbytes`` element that survive the reference
+    multisplit's round trip through ``ceil(nbits / 16)`` exact 16-bit
+    halves: the low ``16 * ceil(nbits / 16)``."""
+    if nbits < 1:
+        raise ValueError(f"key_bits / val_bits must be >= 1, got {nbits}")
+    return (1 << min(16 * -(-nbits // 16), 8 * nbytes)) - 1
+
+
+def _keep_low_bits(x: torch.Tensor, nbits: int) -> torch.Tensor:
+    mask = low_bits_mask(nbits, x.element_size())
+    if mask == (1 << 8 * x.element_size()) - 1:
+        return x
+    return (signed_bits(x)[0] & mask).view(x.dtype)
+
+
+def tile_multisplit_kv_ref(keys: torch.Tensor, vals, shift: int, width: int,
+                           key_bits: int, val_bits: int = 32):
+    """The multisplit kernels' plain version: ``tile_multisplit_ref`` with
+    keys (and, when ``vals`` is given, values moved alongside) truncated as
+    the reference's exact 16-bit-half permutation leaves them.  Returns
+    ``(keys, digits, ranks, hist)`` or ``(keys, vals, digits, ranks,
+    hist)``."""
+    check_multisplit_dtypes(keys, vals)
+    order, digit = _tile_order(keys, shift, width)
+    sk, sd, rank, hist = _multisplit_outputs(keys, order, digit, width)
+    sk = _keep_low_bits(sk, key_bits)
+    if vals is None:
+        return sk, sd, rank, hist
+    vb, _ = signed_bits(vals)
+    sv = _keep_low_bits(torch.gather(vb, 1, order).view(vals.dtype),
+                         val_bits)
+    return sk, sv, sd, rank, hist
+
+
+def assigned_histogram_ref(keys: torch.Tensor, tile_idx: torch.Tensor,
+                           valid: torch.Tensor, shift: int,
+                           width: int) -> torch.Tensor:
+    """(G, 2^width) int32: row g is the histogram of tile ``tile_idx[g]``
+    times ``valid[g]``.  An index in [-T, -1] counts from the end and the
+    result is clamped to [0, T-1], as the reference's block index is."""
+    t = keys.shape[0]
+    if t == 0:
+        raise ValueError("assigned_histogram needs at least one tile")
+    idx = tile_idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + t, idx).clamp(0, t - 1)
+    hist = radix_histogram_ref(signed_bits(keys)[0][idx].view(keys.dtype),
+                               shift, width)
+    return hist * valid.to(torch.int32).unsqueeze(1)
 
 
 def sort_segments_ref(buf: torch.Tensor, perm, starts: torch.Tensor,

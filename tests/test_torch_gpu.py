@@ -178,3 +178,129 @@ def test_oocsort_on_card_equals_cpu(dev, spill):
     assert got[1].tobytes() == want[1].tobytes()
     assert got[2] == want[2]
     assert got[0].tobytes() == np.sort(x, kind="stable").tobytes()
+
+
+# ---- the library surface: row network, multisplit, assigned histogram ----
+
+def _bits_equal(a, b):
+    from repro_torch.kernels.ref import int_view
+    return a.dtype == b.dtype and torch.equal(int_view(a), int_view(b))
+
+
+def _rows_input(rng, shape, dtype):
+    """Keys of a torch dtype from numpy bits; floats mixed with random bit
+    patterns (NaN payloads, subnormals, infinities) and signed zeros."""
+    size = torch.empty((), dtype=dtype).element_size()
+    u = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[size]
+    bits = rng.integers(0, 2**63, shape, dtype=np.uint64).astype(u)
+    t = torch.from_numpy(bits).view(dtype)
+    if dtype.is_floating_point:
+        normal = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+        m = torch.from_numpy(rng.random(shape))
+        t = torch.where(m < 0.7, normal, t)
+        t = torch.where((m >= 0.7) & (m < 0.8), torch.zeros_like(t), t)
+        t = torch.where((m >= 0.8) & (m < 0.9), -torch.zeros_like(t), t)
+    elif dtype == torch.bool:
+        t = torch.from_numpy(bits & u(1)).to(torch.bool)
+    return t
+
+
+ROW_DTYPES = [torch.uint32, torch.int32, torch.float32, torch.int64,
+              torch.float64, torch.uint16, torch.bfloat16, torch.float16,
+              torch.uint8, torch.int8, torch.bool, torch.uint64]
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=str)
+@pytest.mark.parametrize("length", [2, 64, 1024, 8192])
+def test_rows_kernel_equals_plain(dev, dtype, length):
+    from repro_torch.kernels import bitonic, ref
+    rng = np.random.default_rng(length)
+    keys = _rows_input(rng, (max(3, 65536 // length), length), dtype).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=dev).reshape(keys.shape)
+    assert _bits_equal(bitonic.bitonic_sort_rows(keys),
+                       ref.bitonic_rows_ref(keys))
+    gk, gv = bitonic.bitonic_sort_rows_kv(keys, vals)
+    wk, wv = ref.bitonic_rows_ref(keys, vals)
+    assert _bits_equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("vdtype", [torch.int8, torch.float16, torch.int64])
+def test_rows_kv_kernel_value_dtypes_and_duplicates(dev, vdtype):
+    from repro_torch.kernels import bitonic, ref
+    gen = torch.Generator(device=dev).manual_seed(9)
+    keys = torch.randint(0, 1000, (64, 16384), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint32)
+    vals = torch.randint(-100, 100, keys.shape, generator=gen, device=dev,
+                         dtype=torch.int64).to(vdtype)
+    got = bitonic.bitonic_sort_rows_kv(keys, vals)
+    want = ref.bitonic_rows_ref(keys, vals)
+    assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+
+
+def test_rows_kernel_refuses_a_row_over_shared_memory(dev):
+    from repro_torch.kernels import bitonic
+    keys = torch.zeros((1, 16384), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        bitonic.bitonic_sort_rows_kv(keys, keys.clone())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.uint16,
+                                   torch.int64, torch.uint64], ids=str)
+@pytest.mark.parametrize("shift,width,key_bits", [(24, 8, 32), (0, 8, 16),
+                                                  (28, 8, 32), (40, 5, 64),
+                                                  (3, 1, 48)])
+def test_multisplit_kernel_equals_plain(dev, dtype, shift, width, key_bits):
+    from repro_torch.kernels import multisplit, ref
+    rng = np.random.default_rng(shift * 7 + width)
+    keys = _rows_input(rng, (40, 6912), dtype).to(dev)
+    keys[3] = keys[3, :1]                       # one all-equal tile
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=dev).reshape(keys.shape)
+    got = multisplit.tile_multisplit(keys, shift, width, key_bits)
+    want = ref.tile_multisplit_kv_ref(keys, None, shift, width, key_bits)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    got = multisplit.tile_multisplit_kv(keys, vals, shift, width, key_bits,
+                                        16)
+    want = ref.tile_multisplit_kv_ref(keys, vals, shift, width, key_bits, 16)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.int64],
+                         ids=str)
+def test_assigned_kernel_equals_plain(dev, dtype):
+    from repro_torch.kernels import assigned, ref
+    rng = np.random.default_rng(4)
+    keys = _rows_input(rng, (50, 1024), dtype).to(dev)
+    tile_idx = torch.from_numpy(np.concatenate([
+        rng.permutation(50), [-1, -50, -51, 50, 2**31 - 1, -2**31, 7]])
+        .astype(np.int32)).to(dev)
+    valid = torch.ones_like(tile_idx)
+    valid[-7:] = torch.tensor([1, 2, 1, -3, 1, 0, 0], dtype=torch.int32)
+    for shift, width in ((24, 8), (28, 8), (0, 3)):
+        got = assigned.assigned_histogram(keys, tile_idx, valid, shift,
+                                          width)
+        want = ref.assigned_histogram_ref(keys, tile_idx, valid, shift, width)
+        assert torch.equal(got, want)
+
+
+def test_tile_histogram_pass_on_card_equals_cpu(dev):
+    from repro_torch.kernels import COUNTS, ops, reset_counts
+    x = torch.from_numpy(_keys(np.random.default_rng(8), 100001))
+    reset_counts()
+    got = ops.tile_histogram_pass(x.to(dev), 24, 8, kpb=6912)
+    assert COUNTS["histogram"] == 1
+    want = ops.tile_histogram_pass(x, 24, 8, kpb=6912)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_library_kernels_refuse_widths_above_8(dev):
+    from repro_torch.kernels import assigned, histogram, multisplit
+    keys = torch.zeros((2, 256), dtype=torch.int32, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="widths 1..8"):
+        multisplit.tile_multisplit(keys, 0, 9, 32)
+    with pytest.raises(ValueError, match="widths 1..8"):
+        assigned.assigned_histogram(keys, idx, idx, 0, 9)
+    with pytest.raises(ValueError, match="widths 1..8"):
+        histogram.radix_histogram(keys, 0, 9)

@@ -51,7 +51,8 @@ def test_port_sources_import_neither_jax_nor_reference():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core.hybrid, "
             "repro_torch.kernels.fused, repro_torch.kernels.bitonic, "
-            "repro_torch.core.interop\n"
+            "repro_torch.kernels.multisplit, repro_torch.kernels.assigned, "
+            "repro_torch.kernels.ops, repro_torch.core.interop\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}]\n"
             "assert not bad, bad\n")
@@ -87,12 +88,19 @@ def test_work_follows_the_tensor_device():
 
 
 def test_wrappers_reject_other_devices():
-    from repro_torch.kernels import bitonic, fused, histogram
+    from repro_torch.kernels import (assigned, bitonic, fused, histogram,
+                                     multisplit)
     meta = torch.empty((2, 64), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         histogram.radix_histogram(meta, 0, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         bitonic.bitonic_sort_rows_stable(meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitonic.bitonic_sort_rows_kv(meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        multisplit.tile_multisplit(meta, 0, 8, 32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        assigned.assigned_histogram(meta, meta[0], meta[0], 0, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         fused.initial_histogram(meta.reshape(-1), 100, 0, 8, 256, 1, 64)
 
