@@ -14,7 +14,10 @@ just after:
   must resolve to the kernels), on 2^28 uint32 keys alone and with values,
   Zipf, AND-3, float and int64 keys: every kernel is first held to its
   plain PyTorch version at the shapes the main path gives it (exact
-  integer equality), every sort is checked byte for byte against
+  integer equality; the histogram also on all-equal keys, on views that
+  start off a 16-byte boundary and on int64 keys; the fused pass on the
+  KV and keys-only passes and on the four passes of the AND-3 keys, whose
+  later rows start unaligned), every sort is checked byte for byte against
   ``torch.sort(stable=True)`` of the ordered-bits carrier, the launch census
   is checked and one sort is profiled;
 * the library surface, each public entry point of
@@ -252,6 +255,26 @@ def check_histogram(torch, keys_u32, kpb, reps):
                           library_ms=lib, library_with_digits_ms=lib_digits)
         emit({"phase": "kernel_check", "kernel": "histogram", "keys": label,
               "n": n, "equal": True, **out[label]})
+    # the vector loads' scalar head and tail: a view one key in (its start
+    # 4 bytes past a 16-byte boundary) of odd length, and 8-byte keys at
+    # the same byte count, each with a view one key in
+    i64 = torch.cat([carrier, carrier]).view(torch.int64)
+    for label, buf, m, shift in (("unaligned", ck[1:], n - 2, 24),
+                                 ("int64", i64, n // 2, 56),
+                                 ("int64_unaligned", i64[1:], n // 2 - 3,
+                                  56)):
+        got = histogram.digit_total(buf, m, shift, 8)
+        want = ref.radix_histogram_ref(buf[:m].reshape(1, -1), shift, 8)[0]
+        err = max_abs_err(torch, [(got, want)])
+        need(err == 0, f"histogram ({label}) != plain")
+        ms = cuda_ms(torch, lambda: histogram.digit_total(buf, m, shift, 8),
+                     reps)
+        emit({"phase": "kernel_check", "kernel": "histogram", "keys": label,
+              "n": m, "key_bytes": buf.element_size(),
+              "start_mod16": buf.data_ptr() % 16, "equal": True, "ms": ms,
+              "bound_ms": bound_ms(m * buf.element_size() + 256 * 4),
+              "max_abs_err": err})
+    del i64
     return out
 
 
@@ -265,6 +288,8 @@ def _pass_bytes(rec, n, lookahead):
 
 
 def check_fused(torch, rec, n, label, reps):
+    """The fused pass against its plain version on a captured pass (keys,
+    every value leaf and the histograms, exact), then both timed."""
     from repro_torch.kernels import fused, ref
     kw = rec["kw"]
 
@@ -277,13 +302,14 @@ def check_fused(torch, rec, n, label, reps):
         return fn(keys, vals, alt_k, alt_v, rec["sc"], *tables, **kw)
 
     dev = rec["src_keys"].device
-    got = run(fused.fused_counting_pass, dev)
     want = run(ref.fused_counting_pass_ref, dev)
+    got = run(fused.fused_counting_pass, dev)
     pairs = [(got[0][:n], want[0][:n])]
     pairs += [(a[:n], b[:n]) for a, b in zip(got[1], want[1])]
     pairs += list(zip(got[2:], want[2:]))
     err = max_abs_err(torch, pairs)
     need(err == 0, f"fused pass ({label}) != plain")
+    del got, want
     keys, vals = rec["src_keys"], rec["src_vals"]
     alt_k = torch.empty_like(keys)
     alt_v = tuple(torch.empty_like(v) for v in vals)
@@ -292,14 +318,19 @@ def check_fused(torch, rec, n, label, reps):
     plain = cuda_ms(torch, lambda: ref.fused_counting_pass_ref(
         keys, vals, alt_k, alt_v, rec["sc"], *rec["tables"], **kw),
         max(1, reps // 2))
-    live_rows = int((rec["tables"][3] > 0).sum())
+    _, off, reset, count, active = (t.reshape(-1) for t in
+                                    rec["tables"][:5])
+    live = (count > 0) & (active > 0)
+    unaligned = int((live & (off * keys.element_size() % 16 != 0)).sum())
     res = dict(ms=ms, plain_ms=plain, max_abs_err=err,
                bound_ms=bound_ms(_pass_bytes(rec, n,
                                              kw.get("lookahead", False))),
-               rows=rec["tables"][0].numel(), live_rows=live_rows)
+               rows=off.numel(), live_rows=int(live.sum()),
+               unaligned_rows=unaligned,
+               regions=int((live & (reset > 0)).sum()))
     emit({"phase": "kernel_check", "kernel": "fused_pass", "pass": label,
           "n": n, "values": len(vals), "lookahead": kw.get("lookahead"),
-          "equal": True, **res})
+          "sc": list(rec["sc"]), "equal": True, **res})
     return res
 
 
@@ -1161,6 +1192,21 @@ def run(args) -> int:
         plain = dict(r, kw=dict(r["kw"], lookahead=False))
         check_fused(torch, plain, n, f"keys_pass{i}_no_lookahead", 1)
     del rec_k, keys, vals
+    torch.cuda.empty_cache()
+    # the skewed capture: AND-3 keys (4 passes, long digit runs, rows of
+    # later passes starting unaligned)
+    and3 = rng.integers(0, 2**32, n, dtype=np.uint32)
+    for _ in range(3):
+        and3 &= rng.integers(0, 2**32, n, dtype=np.uint32)
+    rec_a = capture(torch, torch.from_numpy(and3).to(dev), None, passes=4)
+    del and3
+    need(len(rec_a["passes"]) == 4,
+         f"AND-3 ran {len(rec_a['passes'])} passes, expected 4")
+    fused_and3 = [check_fused(torch, r, n, f"and3_pass{i}", args.reps)
+                  for i, r in enumerate(rec_a["passes"])]
+    need(any(r["unaligned_rows"] for r in fused_and3),
+         "no fused pass with unaligned rows was checked")
+    del rec_a
     torch.cuda.empty_cache()
 
     # library phase: the library-surface kernels (their own counted run)

@@ -93,17 +93,13 @@ __device__ __forceinline__ int warp_rank_step(int* mine, unsigned d,
   return before + __popc(peers & lanemask_lt(lane));
 }
 
-// Warp-aggregated increment: lanes whose `bin` is >= 0 add 1 to
-// counter[bin]; lanes with equal bins are merged first so a skewed warp
-// issues one atomic per distinct bin instead of 32 to one address (the
-// paper's Fig. 2 thread reduction).  Every lane of the warp must call it.
-__device__ __forceinline__ void warp_count(int* counter, int bin, int lane) {
-  unsigned want = __ballot_sync(kFullMask, bin >= 0);
-  if (bin >= 0) {
-    unsigned peers = __match_any_sync(want, bin);
-    if (lane == __ffs(peers) - 1) atomicAdd(counter + bin, __popc(peers));
-  }
-}
+// One 16-byte vector load seen as keys: 4 uint32, 2 uint64, 8 uint16 or 16
+// uint8.
+template <typename K>
+union KeyVec {
+  uint4 v;
+  K k[16 / sizeof(K)];
+};
 
 // Dispatch a key width in bytes to the unsigned key type.
 #define REPRO_DISPATCH_KEY(bytes, K, ...)                                     \

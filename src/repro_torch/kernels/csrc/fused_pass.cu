@@ -1,46 +1,89 @@
 // One whole counting pass in one launch: the port of
 // repro/kernels/fused.py::_fused_pass_kernel.
 //
-// Per flat descriptor row (seg, off, reset, count, active) one CTA:
-//   1. loads the row's keys into shared memory (the pass's one key read) and
-//      counts their digits per warp; each warp owns a contiguous slice;
-//   2. turns the per-warp counts into exclusive offsets across warps, so the
-//      warp-then-lane order of the walk below is the keys' index order;
-//   3. obtains its in-segment carry by decoupled look-back over the CTAs of
-//      earlier rows of the same region (below);
-//   4. walks its slice again 32 keys at a time, in order: __match_any_sync
-//      gives each lane its rank among equal digits of the step, a running
-//      per-warp digit counter the rest, so the rank is stable (the stable
-//      in-block rank of common.cuh, shared with csrc/multisplit.cu);
-//   5. scatters key and every value leaf to
-//        base_excl[seg, digit] + carry[digit] + rank   (partition rows),
-//      and copy-through rows (active == 0) copy key and values to their own
-//      index; lanes past `count` write nothing;
-//   6. counts the next pass's digit at (nlo, nwidth), keyed by
-//      next_sid[seg * r + digit], into `hist` (and at (n2lo, n2width) into
-//      `hist2` with lookahead), warp-aggregated global atomics.
+// Persistent CTAs (as many as fit the card at once) take flat descriptor
+// rows (seg, off, reset, count, active) by ticket.  Per partition row:
+//   1. the row's keys come into shared memory with 16-byte vector loads (a
+//      scalar head and tail where the row's start is not 16-byte aligned:
+//      pass 0 rows always are, later passes' segment-relative rows not);
+//      L2 is asked for the row's value leaves at once (a bulk prefetch);
+//   2. one walk ranks them stably: each warp walks its contiguous slice 32
+//      keys at a time in index order; the lanes of one digit find each
+//      other through the warp's shared table of digit bitmasks (one atomicOr
+//      each, then one read: cheaper than __match_any_sync when a step holds
+//      many distinct digits) and read and bump the warp's running digit
+//      count; the counts then become exclusive offsets across warps, so the
+//      warp-then-lane order is the keys' index order;
+//   3. the row publishes its block histogram and obtains its in-segment
+//      carry by decoupled look-back over the earlier rows of its region;
+//   4. it stages the row digit-major in shared memory (each key's staged
+//      slot kept as uint16);
+//   5. it writes the keys out in runs: staged slot j of digit d goes to
+//      base_excl[seg, d] + carry[d] + (j - block_excl[d]), so consecutive
+//      threads write consecutive addresses of a digit run (the paper's §4.4
+//      write combining), and counts the next pass's digit at (nlo, nwidth),
+//      keyed by next_sid[seg * r + digit], into `hist` (and at (n2lo,
+//      n2width) into `hist2` with lookahead);
+//   6. each value leaf passes through the same staging buffer in turn
+//      (coalesced read, permuted in shared memory, written in runs).
+// Copy-through rows (active == 0) copy key and values to their own index;
+// lanes past `count` write nothing.
+//
+// The next-pass count runs over the staged tile: the lanes of one (digit,
+// next digit) pair of a warp step are merged, and a run of kLongRun keys or
+// more merges all its next digits in a shared table first, so a long run
+// costs one global atomic per (run, next digit).  (Counting over the keys in
+// index order with warp-aggregated global atomics measured slower on every
+// pass; PERF.md.)
 //
 // The TPU ran the grid in order and carried the in-segment offsets in
-// scratch.  CTAs here run concurrently and in no order, so each CTA takes a
-// virtual row id from a global ticket (every row it may wait on has then
-// already started: no deadlock), publishes its block histogram at once
-// (flag 1), walks back over the published rows of its region adding their
-// aggregates until it meets an inclusive prefix (flag 2), and publishes its
-// own inclusive prefix.  The first row of a region (reset == 1) starts from
-// zero and publishes its inclusive prefix directly.  Rows are stable
-// partitions in descriptor order, so the output is byte-identical to the
-// reference's sequential carry.
+// scratch.  CTAs here run concurrently and in no order, so a CTA takes its
+// next row from a global ticket as it becomes free (every row it may wait
+// on has then already started: no deadlock).  The look-back state of each
+// (row, digit) is one word, a 2-bit status (0 none, 1 aggregate, 2
+// inclusive prefix) over a count, read and written with one relaxed atomic:
+// status and count travel together, so no fence orders them, and a step
+// back is one load.  The word is 32 bits (30-bit count) when n < 2^30, else
+// 64.  Thread d of the CTA follows digit d back, 64 bytes of words per
+// round of independent loads, adding aggregates until it meets an inclusive
+// prefix; the first row of a region (reset == 1) publishes its inclusive
+// prefix at once.  Inert rows (count 0) and copy-through rows never sit
+// inside a region, so no chain reaches them.  An inert row is a no-op; a CTA
+// that meets one with no live row after it retires (the pads that trail
+// every table the planner makes).
+// Rows are stable partitions in descriptor order, so the output is
+// byte-identical to the reference's sequential carry.
 //
 // Bound: bytes.  Keys 1R + 1W, every value leaf 1R + 1W, plus the small
-// descriptor tables and the two (a_max * r) histograms.  The scatter is
-// per lane (no shared-memory write combining yet), which costs write
-// efficiency on short digit runs.  Supports d <= 8 (r <= 256), kpb <= 2^16
-// and up to kMaxLeaves value leaves of 1, 2, 4 or 8 bytes.
+// descriptor tables and the (a_max * r) histograms.  What held the first
+// version back on this card: a look-back of three arrays with a fence per
+// step (pass 0's single 38 837-row region paid it along the whole chain),
+// a per-lane scatter into up to 256 buckets, scalar key loads, two
+// __match_any_sync per key and a CTA for every pad row.  What bounds this
+// one on uniform keys is pass 0's next-pass counts: its rows hold no two
+// keys of one (digit, next digit) bin, so each key costs a global atomic
+// per histogram.  Shared memory (PassLayout; a shape over the card's
+// opt-in limit is refused at launch): keys twice (index order, staged), or
+// one leaf, + kpb uint16 slots
+// + kpb digits + two (16, r) int tables (the rank's per-warp counts and
+// digit bitmasks, then the long runs' next-digit tables) + 4 r + 16 ints;
+// at kpb 6912 with 4-byte keys and values 110.3 KB (two CTAs of 512
+// threads per SM), with 8-byte keys and 8-byte values 164.3 KB (one).
+// Supports d <= 8 (r <= 256), kpb <= 2^16 within 227 KB, and up to
+// kMaxLeaves value leaves of 1, 2, 4 or 8 bytes.
+#include <cuda/atomic>
+
 #include "common.cuh"
 
 constexpr int kPassThreads = 512;
 constexpr int kPassWarps = kPassThreads / 32;
 constexpr int kMaxLeaves = 8;
+// runs at least this long merge their next digits in shared memory
+constexpr int kLongRun = 64;
+// long runs per row with a shared next-digit table (the rest: atomics);
+// their tables take the place of the per-warp counts after staging
+constexpr int kMaxLongRuns = kPassWarps;
+static_assert(kMaxLongRuns <= kPassWarps, "long-run tables reuse wcnt");
 
 struct Leaves {
   const void* src[kMaxLeaves];
@@ -49,87 +92,324 @@ struct Leaves {
   int count;
 };
 
-__device__ __forceinline__ void copy_elem(const void* src, void* dst,
-                                          int bytes, long long from,
-                                          long long to) {
-  switch (bytes) {
-    case 1: static_cast<uint8_t*>(dst)[to] =
-                static_cast<const uint8_t*>(src)[from]; break;
-    case 2: static_cast<uint16_t*>(dst)[to] =
-                static_cast<const uint16_t*>(src)[from]; break;
-    case 4: static_cast<uint32_t*>(dst)[to] =
-                static_cast<const uint32_t*>(src)[from]; break;
-    default: static_cast<unsigned long long*>(dst)[to] =
-                static_cast<const unsigned long long*>(src)[from]; break;
-  }
+// ---- look-back words -----------------------------------------------------
+
+template <typename W>
+struct Look {
+  static constexpr int kShift = sizeof(W) * 8 - 2;
+  static constexpr W kAgg = W(1) << kShift;
+  static constexpr W kIncl = W(2) << kShift;
+  static constexpr W kCount = kAgg - 1;
+  static constexpr int kBatch = 64 / sizeof(W);  // loads in flight
+};
+
+template <typename W>
+__device__ __forceinline__ void publish(W* word, W value) {
+  cuda::atomic_ref<W, cuda::thread_scope_device>(*word).store(
+      value, cuda::memory_order_relaxed);
 }
 
-__device__ __forceinline__ int load_flag(const int* flag) {
-  return *reinterpret_cast<const volatile int*>(flag);
+template <typename W>
+__device__ __forceinline__ W peek(W* word) {
+  return cuda::atomic_ref<W, cuda::thread_scope_device>(*word).load(
+      cuda::memory_order_relaxed);
 }
 
-template <typename K>
-__global__ void __launch_bounds__(kPassThreads)
-fused_pass_kernel(const K* __restrict__ src_keys, K* __restrict__ dst_keys,
-                  Leaves leaves, const int* __restrict__ blk_seg,
-                  const int* __restrict__ blk_off,
-                  const int* __restrict__ blk_reset,
-                  const int* __restrict__ blk_count,
-                  const int* __restrict__ blk_active, int rows,
-                  const int* __restrict__ base_excl,
-                  const int* __restrict__ next_sid, int lo, int width,
-                  int nlo, int nwidth, int n2lo, int n2width, int lookahead,
-                  int r, int a_max, int kpb, int* hist, int* hist2,
-                  int* ticket, int* flags, int* agg, int* incl) {
-  extern __shared__ unsigned long long smem_raw[];
-  K* skeys = reinterpret_cast<K*>(smem_raw);                // (kpb,)
-  int* wcnt = reinterpret_cast<int*>(                        // (warps, r)
-      reinterpret_cast<unsigned char*>(smem_raw) +
-      (static_cast<size_t>(kpb) * sizeof(K) + 7) / 8 * 8);
-  int* carry = wcnt + kPassWarps * r;                        // (r,)
-  int* bhist = carry + r;                                    // (r,)
-  __shared__ int s_row;
-
-  if (threadIdx.x == 0) s_row = atomicAdd(ticket, 1);
-  __syncthreads();
-  const int g = s_row;
-  if (g >= rows) return;
-  const int count = blk_count[g];
-  if (count <= 0) return;
-  const long long off = blk_off[g];
-  const int tid = threadIdx.x;
-
-  if (!blk_active[g]) {                 // copy-through row: own index
-    for (int i = tid; i < count; i += blockDim.x) {
-      dst_keys[off + i] = src_keys[off + i];
-      for (int v = 0; v < leaves.count; ++v)
-        copy_elem(leaves.src[v], leaves.dst[v], leaves.bytes[v], off + i,
-                  off + i);
+// Digit d's exclusive prefix over the earlier rows of row g's region:
+// aggregates of rows g-1, g-2, ... up to and including the first inclusive
+// prefix, kBatch words loaded at once; a row not yet published is loaded
+// again from there.
+template <typename W>
+__device__ long long look_back(W* words, int g, int r, int d) {
+  using L = Look<W>;
+  long long acc = 0;
+  int j = g - 1;
+  while (true) {
+    W w[L::kBatch];
+#pragma unroll
+    for (int k = 0; k < L::kBatch; ++k)
+      w[k] = j - k >= 0 ? peek(words + static_cast<long long>(j - k) * r + d)
+                        : L::kIncl;
+    int took = 0;
+    bool stop = false, done = false;
+#pragma unroll
+    for (int k = 0; k < L::kBatch; ++k) {
+      if (stop) continue;
+      const W status = w[k] >> L::kShift;
+      if (status == 0) {
+        stop = true;
+      } else {
+        acc += static_cast<long long>(w[k] & L::kCount);
+        ++took;
+        if (status == 2) stop = done = true;
+      }
     }
-    return;
+    if (done) return acc;
+    if (took == 0) __nanosleep(32);
+    j -= took;
   }
+}
 
-  const int seg = blk_seg[g];
+// ---- rows ----------------------------------------------------------------
+
+// keys[0, count) of a row into shared memory, 16 bytes per load where the
+// row's keys reach a 16-byte boundary.
+template <typename K>
+__device__ void load_row(const K* __restrict__ src, int count, K* sk) {
+  constexpr int V = 16 / sizeof(K);
+  const int head = min(
+      count, static_cast<int>(
+                 ((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) /
+                 sizeof(K)));
+  const int nvec = (count - head) / V;
+  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
+  if (threadIdx.x < head) sk[threadIdx.x] = src[threadIdx.x];
+  if (head == 0) {
+    uint4* vdst = reinterpret_cast<uint4*>(sk);
+    for (int v = threadIdx.x; v < nvec; v += blockDim.x)
+      vdst[v] = __ldcs(vsrc + v);
+  } else {
+    for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+      KeyVec<K> a;
+      a.v = __ldcs(vsrc + v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) sk[head + v * V + e] = a.k[e];
+    }
+  }
+  for (int i = head + nvec * V + threadIdx.x; i < count; i += blockDim.x)
+    sk[i] = src[i];
+}
+
+template <typename T>
+__device__ void copy_row(const void* src, void* dst, long long off,
+                         int count) {
+  const T* s = static_cast<const T*>(src) + off;
+  T* d = static_cast<T*>(dst) + off;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) d[i] = s[i];
+}
+
+// One value leaf through the staging buffer: row element i to staged slot
+// slot[i], then staged slot j to dst[delta[sdig[j]] + j].
+template <typename T>
+__device__ void move_leaf(const void* src, void* dst, long long off,
+                          int count, void* stage,
+                          const unsigned short* slot,
+                          const unsigned char* sdig, const int* delta) {
+  const T* s = static_cast<const T*>(src) + off;
+  T* st = static_cast<T*>(stage);
+  __syncthreads();  // the stage buffer's last readers are done
+  for (int i = threadIdx.x; i < count; i += blockDim.x) st[slot[i]] = s[i];
+  __syncthreads();
+  T* d = static_cast<T*>(dst);
+  for (int j = threadIdx.x; j < count; j += blockDim.x)
+    d[static_cast<long long>(delta[sdig[j]]) + j] = st[j];
+}
+
+// Block-exclusive digit offsets and the ids of the long runs that count
+// next digits (runid[d] in [0, *nlong) or -1; longd[id] = d), by one warp.
+// Digit d's run counts next digits when `counting` and nsid[d] < a_max;
+// *live says whether any run of the row does.
+__device__ void digit_scan(const int* bhist, const int* nsid, int a_max,
+                           bool counting, int r, int* bexcl, int* runid,
+                           int* longd, int* nlong, int* live, int lane) {
+  const int per = (r + 31) / 32;
+  const int d0 = min(r, lane * per), d1 = min(r, d0 + per);
+  int sum = 0, longs = 0;
+  bool any = false;
+  for (int d = d0; d < d1; ++d) {
+    sum += bhist[d];
+    const bool counted = counting && bhist[d] > 0 && nsid[d] < a_max;
+    any |= counted;
+    longs += counted && bhist[d] >= kLongRun;
+  }
+  any = __any_sync(kFullMask, any);
+  int incl = sum, lincl = longs;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int a = __shfl_up_sync(kFullMask, incl, o);
+    const int b = __shfl_up_sync(kFullMask, lincl, o);
+    if (lane >= o) {
+      incl += a;
+      lincl += b;
+    }
+  }
+  if (lane == 31) {
+    *nlong = min(lincl, kMaxLongRuns);
+    *live = any;
+  }
+  int run = incl - sum, lid = lincl - longs;
+  for (int d = d0; d < d1; ++d) {
+    bexcl[d] = run;
+    run += bhist[d];
+    if (counting && bhist[d] >= kLongRun && nsid[d] < a_max &&
+        lid < kMaxLongRuns) {
+      runid[d] = lid;
+      longd[lid] = d;
+      ++lid;
+    } else {
+      runid[d] = -1;
+    }
+  }
+}
+
+// One warp step of the staged next-digit count (every lane calls it; lanes
+// with sid >= a_max count nothing): the lanes of one (digit, next digit)
+// pair are merged; a long run (rid >= 0) adds into its shared table, a
+// short one straight into the global histogram.
+__device__ __forceinline__ void staged_count(int* hist, int* table, int sid,
+                                             int rid, unsigned d, unsigned nd,
+                                             int r, int a_max, int lane) {
+  const bool live = sid < a_max;
+  const unsigned want = __ballot_sync(kFullMask, live);
+  if (!live) return;
+  const unsigned peers = __match_any_sync(want, d << 8 | nd);
+  if (lane == __ffs(peers) - 1) {
+    if (rid >= 0)
+      atomicAdd(table + rid * r + nd, __popc(peers));
+    else
+      atomicAdd(hist + static_cast<long long>(sid) * r + nd, __popc(peers));
+  }
+}
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+
+// Byte offsets of the shared-memory layout.
+struct PassLayout {
+  size_t slot, sdig, wcnt, nh2, small, total;
+  __host__ __device__ PassLayout(int kpb, int key_bytes, int leaf_bytes,
+                                 int r) {
+    const size_t k = static_cast<size_t>(kpb);
+    size_t region = 2 * k * key_bytes;
+    if (k * leaf_bytes > region) region = k * leaf_bytes;
+    slot = align16(region);
+    sdig = slot + 2 * k;
+    wcnt = align16(sdig + k);
+    nh2 = wcnt + sizeof(int) * kPassWarps * r;
+    small = nh2 + sizeof(int) * kPassWarps * r;
+    total = small + sizeof(int) * (4 * r + kMaxLongRuns);
+  }
+};
+
+// The kernel's arguments, one struct in parameter space.
+template <typename K, typename W>
+struct PassArgs {
+  const K* src_keys;
+  K* dst_keys;
+  Leaves leaves;
+  int leaf_bytes;
+  const int* blk_seg;
+  const int* blk_off;
+  const int* blk_reset;
+  const int* blk_count;
+  const int* blk_active;
+  int rows;
+  const int* base_excl;
+  const int* next_sid;
+  int lo, width, nlo, nwidth, n2lo, n2width, lookahead, r, a_max, kpb;
+  int* hist;
+  int* hist2;
+  int* ticket;
+  W* words;
+};
+
+// Asks L2 for the whole 16-byte units of bytes [begin, end).
+__device__ __forceinline__ void prefetch_l2(const void* base, long long begin,
+                                            long long end) {
+  begin = (begin + 15) / 16 * 16;
+  end = end / 16 * 16;
+  if (end > begin)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(
+                     static_cast<const unsigned char*>(base) + begin),
+                 "r"(static_cast<unsigned>(end - begin))
+                 : "memory");
+}
+
+// Copy-through row: key and every value leaf to their own index.
+template <typename K, typename W>
+__device__ void copy_through(const PassArgs<K, W>& a, long long off,
+                             int count) {
+  copy_row<K>(a.src_keys, a.dst_keys, off, count);
+  for (int v = 0; v < a.leaves.count; ++v) {
+    const void* src = a.leaves.src[v];
+    void* dst = a.leaves.dst[v];
+    switch (a.leaves.bytes[v]) {
+      case 1: copy_row<uint8_t>(src, dst, off, count); break;
+      case 2: copy_row<uint16_t>(src, dst, off, count); break;
+      case 4: copy_row<uint32_t>(src, dst, off, count); break;
+      default: copy_row<unsigned long long>(src, dst, off, count);
+    }
+  }
+}
+
+// Partition row g (active, count > 0) of segment blk_seg[g].
+template <typename K, typename W>
+__device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
+                              int count, unsigned char* smem) {
+  using L = Look<W>;
+  const int r = a.r, kpb = a.kpb, lo = a.lo, width = a.width;
+  const PassLayout lay(kpb, sizeof(K), a.leaf_bytes, r);
+  K* skeys = reinterpret_cast<K*>(smem);                   // (kpb,) index order
+  K* staged = skeys + kpb;                                 // (kpb,) digit-major
+  void* vstage = smem;                                     // (kpb,) one leaf
+  auto* slot = reinterpret_cast<unsigned short*>(smem + lay.slot);
+  unsigned char* sdig = smem + lay.sdig;                   // staged digits
+  int* wcnt = reinterpret_cast<int*>(smem + lay.wcnt);     // (warps, r)
+  int* nh1 = wcnt;                // (long runs, r), after staging
+  int* nh2 = reinterpret_cast<int*>(smem + lay.nh2);      // (warps, r): digit
+                                  // bitmasks, then (long runs, r)
+  int* bhist = reinterpret_cast<int*>(smem + lay.small);  // (r,)
+  int* bexcl = bhist + r;                                  // (r,)
+  int* delta = bexcl + r;                                  // (r,) carry first
+  int* runid = delta + r;                                  // (r,)
+  int* longd = runid + r;                                  // (kMaxLongRuns,)
+  __shared__ int s_nlong;                                  // long runs used
+  __shared__ int s_live;                                   // a run counts
+
+  const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int i = tid; i < kPassWarps * r; i += blockDim.x) wcnt[i] = 0;
+  const int seg = a.blk_seg[g];
+  const bool reset = a.blk_reset[g] != 0;
+  const int* bex = a.base_excl + static_cast<long long>(seg) * r;
+  const int* nsid = a.next_sid + static_cast<long long>(seg) * r;
+  const bool counting = a.nwidth > 0 || (a.lookahead && a.n2width > 0);
+  if (tid == 0)   // the value leaves are read last: have L2 fetch them now
+    for (int v = 0; v < a.leaves.count; ++v)
+      prefetch_l2(a.leaves.src[v], off * a.leaves.bytes[v],
+                  (off + count) * a.leaves.bytes[v]);
+  for (int i = tid; i < kPassWarps * r; i += blockDim.x) wcnt[i] = nh2[i] = 0;
+  load_row<K>(a.src_keys + off, count, skeys);
   __syncthreads();
 
-  // 1. load + per-warp digit counts over the warp's contiguous slice
+  // 1. stable in-warp ranks and per-warp digit counts: per 32-key step the
+  //    lanes of one digit find each other through the warp's table of
+  //    digit bitmasks (a shared atomicOr each, then one read), read the
+  //    warp's running count, and their lowest lane bumps it and clears the
+  //    mask
   const int per = warp_slice_per(count, kPassWarps);
   const int wbeg = warp * per;
   const int wend = min(wbeg + per, count);
   int* mine = wcnt + warp * r;
+  unsigned* masks = reinterpret_cast<unsigned*>(nh2) + warp * r;
   for (int base = wbeg; base < wend; base += 32) {
     const int i = base + lane;
     const bool valid = i < wend;
-    unsigned d = 0;
-    if (valid) {
-      const K key = src_keys[off + i];
-      skeys[i] = key;
-      d = digit_at(key, lo, width, true);
+    const unsigned d = valid ? digit_at(skeys[i], lo, width, true) : 0u;
+    if (valid) atomicOr(masks + d, 1u << lane);
+    __syncwarp();
+    const unsigned peers = valid ? masks[d] : 0u;
+    const int before = valid ? mine[d] : 0;
+    __syncwarp();
+    if (valid && lane == __ffs(peers) - 1) {
+      mine[d] = before + __popc(peers);
+      masks[d] = 0;
     }
-    warp_count_step(mine, d, valid, lane);
+    __syncwarp();
+    if (valid)
+      slot[i] = static_cast<unsigned short>(
+          before + __popc(peers & lanemask_lt(lane)));
   }
   __syncthreads();
 
@@ -137,82 +417,194 @@ fused_pass_kernel(const K* __restrict__ src_keys, K* __restrict__ dst_keys,
   warps_exclusive(wcnt, kPassWarps, r, bhist);
   __syncthreads();
 
-  // 3. in-segment carry by decoupled look-back in descriptor order
-  const long long row_off = static_cast<long long>(g) * r;
-  if (blk_reset[g]) {
-    for (int d = tid; d < r; d += blockDim.x) {
-      carry[d] = 0;
-      incl[row_off + d] = bhist[d];
+  // 3. publish the aggregate (or, first row of a region, the inclusive
+  //    prefix) at once, then look back (threads d < r) while the last warp
+  //    scans the digits: the inclusive prefix goes out as early as it can,
+  //    since every later row of the region may be walking back to it
+  const long long row_words = static_cast<long long>(g) * r;
+  for (int d = tid; d < r; d += blockDim.x)
+    publish(a.words + row_words + d,
+            (reset ? L::kIncl : L::kAgg) | static_cast<W>(bhist[d]));
+  if (warp == kPassWarps - 1)
+    digit_scan(bhist, nsid, a.a_max, counting, r, bexcl, runid, longd,
+               &s_nlong, &s_live, lane);
+  for (int d = tid; d < r; d += blockDim.x) {
+    long long carry = 0;
+    if (!reset) {
+      carry = look_back(a.words, g, r, d);
+      publish(a.words + row_words + d,
+              L::kIncl | static_cast<W>(carry + bhist[d]));
     }
-    __threadfence();
+    delta[d] = static_cast<int>(carry) + bex[d];
+  }
+  __syncthreads();
+  for (int d = tid; d < r; d += blockDim.x) delta[d] -= bexcl[d];
+
+  // 4. stage digit-major
+  for (int i = wbeg + lane; i < wend; i += 32) {
+    const K key = skeys[i];
+    const unsigned d = digit_at(key, lo, width, true);
+    const int s = bexcl[d] + mine[d] + slot[i];
+    slot[i] = static_cast<unsigned short>(s);
+    staged[s] = key;
+    sdig[s] = static_cast<unsigned char>(d);
+  }
+  __syncthreads();
+  const int table_ints = s_nlong * r;
+  if (table_ints) {    // nh2 is clear: the rank's leaders cleared each mask
+    for (int i = tid; i < table_ints; i += blockDim.x) nh1[i] = 0;
     __syncthreads();
-    if (tid == 0) atomicExch(flags + g, 2);
-  } else {
-    for (int d = tid; d < r; d += blockDim.x) agg[row_off + d] = bhist[d];
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) atomicExch(flags + g, 1);
-    for (int d = tid; d < r; d += blockDim.x) {
-      int acc = 0;
-      for (int j = g - 1;; --j) {
-        int f;
-        while ((f = load_flag(flags + j)) == 0) {
-        }
-        __threadfence();
-        const long long at = static_cast<long long>(j) * r + d;
-        if (f == 2) {
-          acc += __ldcg(incl + at);
-          break;
-        }
-        acc += __ldcg(agg + at);
-      }
-      carry[d] = acc;
-      incl[row_off + d] = acc + bhist[d];
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) atomicExch(flags + g, 2);
   }
 
-  // 4-6. stable rank, scatter, next-pass histograms
-  const int* bex = base_excl + static_cast<long long>(seg) * r;
-  const int* nsid = next_sid + static_cast<long long>(seg) * r;
-  for (int base = wbeg; base < wend; base += 32) {
-    const int i = base + lane;
-    const bool valid = i < wend;
-    K key = 0;
+  // 5. keys out in runs; next-pass counts over the runs
+  for (int base = tid & ~31; base < count; base += blockDim.x) {
+    const int j = base + lane;
+    const bool valid = j < count;
     unsigned d = 0;
+    K key = 0;
     if (valid) {
-      key = skeys[i];
-      d = digit_at(key, lo, width, true);
+      d = sdig[j];
+      key = staged[j];
+      a.dst_keys[static_cast<long long>(delta[d]) + j] = key;
     }
-    const int rank = warp_rank_step(mine, d, valid, lane);
-    int bin = -1, bin2 = -1;
-    if (valid) {
-      const long long dest = static_cast<long long>(bex[d]) + carry[d] +
-                             rank;
-      dst_keys[dest] = key;
-      for (int v = 0; v < leaves.count; ++v)
-        copy_elem(leaves.src[v], leaves.dst[v], leaves.bytes[v], off + i,
-                  dest);
-      const int sid = nsid[d];
-      if (sid < a_max) {
-        if (nwidth > 0) bin = sid * r + digit_at(key, nlo, nwidth, true);
-        if (lookahead && n2width > 0)
-          bin2 = sid * r + digit_at(key, n2lo, n2width, true);
-      }
+    if (s_live) {
+      const int sid = valid ? nsid[d] : a.a_max;
+      const int rid = valid ? runid[d] : -1;
+      if (a.nwidth > 0)
+        staged_count(a.hist, nh1, sid, rid, d,
+                     digit_at(key, a.nlo, a.nwidth, true), r, a.a_max, lane);
+      if (a.lookahead && a.n2width > 0)
+        staged_count(a.hist2, nh2, sid, rid, d,
+                     digit_at(key, a.n2lo, a.n2width, true), r, a.a_max,
+                     lane);
     }
-    warp_count(hist, bin, lane);
-    if (lookahead) warp_count(hist2, bin2, lane);
+  }
+  __syncthreads();
+  if (table_ints) {   // one global atomic per (long run, next digit)
+    for (int i = tid; i < table_ints; i += blockDim.x) {
+      const int c1 = nh1[i], c2 = a.lookahead ? nh2[i] : 0;
+      if (!(c1 | c2)) continue;
+      const long long at =
+          static_cast<long long>(nsid[longd[i / r]]) * r + i % r;
+      if (c1) atomicAdd(a.hist + at, c1);
+      if (c2) atomicAdd(a.hist2 + at, c2);
+    }
+  }
+
+  // 6. each value leaf through the staging buffer
+  for (int v = 0; v < a.leaves.count; ++v) {
+    const void* src = a.leaves.src[v];
+    void* dst = a.leaves.dst[v];
+    switch (a.leaves.bytes[v]) {
+      case 1: move_leaf<uint8_t>(src, dst, off, count, vstage, slot, sdig,
+                                 delta); break;
+      case 2: move_leaf<uint16_t>(src, dst, off, count, vstage, slot, sdig,
+                                  delta); break;
+      case 4: move_leaf<uint32_t>(src, dst, off, count, vstage, slot, sdig,
+                                  delta); break;
+      default: move_leaf<unsigned long long>(src, dst, off, count, vstage,
+                                             slot, sdig, delta);
+    }
+  }
+}
+
+// Whether any row from g on has a positive count (the whole CTA calls it;
+// 16 independent loads per thread between barriers, so a tail of pads costs
+// a few rounds).
+__device__ bool live_from(const int* blk_count, int g, int rows) {
+  constexpr int kUnroll = 16;
+  for (int base = g; base < rows; base += kUnroll * blockDim.x) {
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + u * blockDim.x + threadIdx.x;
+      any |= i < rows && __ldg(blk_count + i) > 0;
+    }
+    if (__syncthreads_or(any)) return true;
+  }
+  return false;
+}
+
+// Persistent CTAs: each takes a row by ticket as it becomes free, so rows
+// start in ticket order and every row a CTA may wait on has started (no
+// deadlock).  An inert row (count 0) is a no-op, and ends the CTA when no
+// live row follows it.
+template <typename K, typename W>
+__global__ void __launch_bounds__(kPassThreads, 2)
+fused_pass_kernel(const PassArgs<K, W> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_row;
+  for (;;) {
+    if (threadIdx.x == 0) s_row = atomicAdd(a.ticket, 1);
+    __syncthreads();
+    const int g = s_row;
+    if (g >= a.rows) return;
+    const int count = a.blk_count[g];
+    const long long off = a.blk_off[g];
+    if (count <= 0) {
+      if (!live_from(a.blk_count, g + 1, a.rows)) return;
+    } else if (a.blk_active[g]) {
+      partition_row(a, g, off, count, smem);
+    } else {
+      copy_through(a, off, count);
+    }
+    __syncthreads();                   // s_row and the shared tables
   }
 }
 
 REPRO_ERROR_STRING
 
-// One fused pass over `rows` flat descriptor rows.  `state` is a zeroed
-// int32 scratch of (1 + rows) ints (ticket, then one flag per row); agg and
-// incl are (rows * r,) int32 scratch that need no clearing.  hist (and hist2
-// when lookahead) are zeroed (a_max * r,) int32 outputs.
+// A layout over the card's opt-in shared memory per CTA (227 KB on the
+// H100) is refused with cudaErrorInvalidValue.
+template <typename K, typename W>
+cudaError_t launch_pass(const PassArgs<K, W>& a, size_t shmem,
+                        cudaStream_t s) {
+  int dev = 0, optin = 0, per_sm = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return e;
+  if (shmem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(fused_pass_kernel<K, W>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(shmem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_pass_kernel<K, W>, kPassThreads, shmem);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  fused_pass_kernel<K, W><<<min(a.rows, per_sm * sms), kPassThreads, shmem,
+                            s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename K, typename W>
+cudaError_t launch_pass(const void* src_keys, void* dst_keys,
+                        const Leaves& leaves, int leaf_bytes,
+                        const int* const* tables, int rows,
+                        const int* base_excl, const int* next_sid,
+                        const int* windows, int lookahead, int r, int a_max,
+                        int kpb, void* hist, void* hist2, void* scratch,
+                        size_t shmem, cudaStream_t s) {
+  PassArgs<K, W> a{static_cast<const K*>(src_keys), static_cast<K*>(dst_keys),
+                   leaves, leaf_bytes, tables[0], tables[1], tables[2],
+                   tables[3], tables[4], rows, base_excl, next_sid,
+                   windows[0], windows[1], windows[2], windows[3],
+                   windows[4], windows[5], lookahead, r, a_max, kpb,
+                   static_cast<int*>(hist),
+                   static_cast<int*>(hist2), static_cast<int*>(scratch),
+                   reinterpret_cast<W*>(static_cast<unsigned char*>(scratch) +
+                                        16)};
+  return launch_pass(a, shmem, s);
+}
+
+// One fused pass over `rows` flat descriptor rows.  `scratch` is zeroed:
+// an int ticket, then at byte 16 one look-back word of `word_bytes` (4 or
+// 8) per (row, digit).  hist (and hist2 when lookahead) are zeroed
+// (a_max * r,) int32 outputs.
 extern "C" int fused_pass_launch(
     const void* src_keys, void* dst_keys, int key_bytes,
     const void* const* val_src, void* const* val_dst, const int* val_bytes,
@@ -220,33 +612,36 @@ extern "C" int fused_pass_launch(
     const int* blk_reset, const int* blk_count, const int* blk_active,
     int rows, const int* base_excl, const int* next_sid, int lo, int width,
     int nlo, int nwidth, int n2lo, int n2width, int lookahead, int r,
-    int a_max, int kpb, void* hist, void* hist2, void* state, void* agg,
-    void* incl, void* stream) {
+    int a_max, int kpb, void* hist, void* hist2,
+    void* scratch, int word_bytes, void* stream) {
   if (r < 2 || r > 256 || num_vals < 0 || num_vals > kMaxLeaves || rows < 1 ||
-      kpb < 1 || kpb > 65536)
+      kpb < 1 || kpb > 65536 || (word_bytes != 4 && word_bytes != 8))
     return cudaErrorInvalidValue;
   Leaves leaves{};
   leaves.count = num_vals;
+  int leaf_bytes = 0;
   for (int v = 0; v < num_vals; ++v) {
     leaves.src[v] = val_src[v];
     leaves.dst[v] = val_dst[v];
     leaves.bytes[v] = val_bytes[v];
+    leaf_bytes = max(leaf_bytes, val_bytes[v]);
   }
-  const size_t key_smem = (static_cast<size_t>(kpb) * key_bytes + 7) / 8 * 8;
-  const size_t shmem = key_smem + sizeof(int) * (kPassWarps + 2) * r;
-  int* st = static_cast<int*>(state);
+  const size_t shmem = PassLayout(kpb, key_bytes, leaf_bytes, r).total;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tables[5] = {blk_seg, blk_off, blk_reset, blk_count,
+                          blk_active};
+  const int windows[6] = {lo, width, nlo, nwidth, n2lo, n2width};
   REPRO_DISPATCH_KEY(key_bytes, K, {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_pass_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    fused_pass_kernel<K><<<rows, kPassThreads, shmem, s>>>(
-        static_cast<const K*>(src_keys), static_cast<K*>(dst_keys), leaves,
-        blk_seg, blk_off, blk_reset, blk_count, blk_active, rows, base_excl,
-        next_sid, lo, width, nlo, nwidth, n2lo, n2width, lookahead, r, a_max,
-        kpb, static_cast<int*>(hist), static_cast<int*>(hist2), st, st + 1,
-        static_cast<int*>(agg), static_cast<int*>(incl));
+    return static_cast<int>(
+        word_bytes == 4
+            ? launch_pass<K, uint32_t>(
+                  src_keys, dst_keys, leaves, leaf_bytes, tables, rows,
+                  base_excl, next_sid, windows, lookahead, r, a_max, kpb,
+                  hist, hist2, scratch, shmem, s)
+            : launch_pass<K, unsigned long long>(
+                  src_keys, dst_keys, leaves, leaf_bytes, tables, rows,
+                  base_excl, next_sid, windows, lookahead, r, a_max, kpb,
+                  hist, hist2, scratch, shmem, s));
   })
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,10 +5,17 @@ copies the done gaps between them through, scatters keys and every value
 leaf into the alternate ping-pong buffer, and counts the next pass's digit
 histogram (and, with ``lookahead``, the one after) — one read and one write
 of the keys per pass (§4.3–§4.4).  On a CUDA tensor it launches
-``csrc/fused_pass.cu`` (one CTA per flat descriptor row, in-segment carries
-by decoupled look-back; see the source note); on a CPU tensor it runs the
-plain version in ``ref.py``.  The alternate buffers are written in place and
-returned, which takes the place of the reference's donation.
+``csrc/fused_pass.cu`` (persistent CTAs take the flat descriptor rows by
+ticket: stable in-row rank, in-segment carries by decoupled look-back over
+packed status words, the row staged digit-major in shared memory and
+written out in runs; see the source note); on a CPU tensor it runs the
+plain version in ``ref.py``.
+The alternate buffers are written in place and returned, which takes the
+place of the reference's donation.
+
+The host-side sizing is plain Python: ``lookback_word_bytes`` (the
+look-back word's width from n) and ``lookback_scratch_bytes``.  A KPB whose
+row does not fit one CTA's shared memory is refused by the launch.
 """
 from __future__ import annotations
 
@@ -25,7 +32,19 @@ MAX_LEAVES = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = ([_P, _P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I, _P, _P] + [_I] * 10 +
-         [_P] * 5 + [_P])
+         [_P] * 3 + [_I, _P])
+
+
+def lookback_word_bytes(n: int) -> int:
+    """Bytes of one look-back word: a 2-bit status over a count that can
+    reach n, so 32 bits below 2^30 keys and 64 from there."""
+    return 4 if n < 1 << 30 else 8
+
+
+def lookback_scratch_bytes(rows: int, r: int, n: int) -> int:
+    """The zeroed scratch of one launch: a 16-byte ticket slot, then one
+    look-back word per (row, digit)."""
+    return 16 + rows * r * lookback_word_bytes(n)
 
 
 def pad_length(n: int, kpb: int) -> int:
@@ -65,7 +84,7 @@ def initial_histogram(buf_keys: torch.Tensor, n: int, lo: int, width: int,
 
 
 def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
-            next_sid, kpb, r, a_max, lookahead):
+            next_sid, kpb, r, a_max, n, lookahead):
     if r > 256:
         raise ValueError(f"the CUDA fused pass supports d <= 8, got r = {r}")
     if len(src_vals) > MAX_LEAVES:
@@ -83,9 +102,8 @@ def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
     rows = tables[0].shape[0]
     hist = torch.zeros(a_max * r, dtype=torch.int32, device=dev)
     hist2 = torch.zeros_like(hist) if lookahead else None
-    state = torch.zeros(1 + rows, dtype=torch.int32, device=dev)
-    agg = torch.empty(rows * r, dtype=torch.int32, device=dev)
-    incl = torch.empty_like(agg)
+    scratch = torch.zeros(lookback_scratch_bytes(rows, r, n),
+                          dtype=torch.uint8, device=dev)
     nv = len(src_vals)
     val_src = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in src_vals])
     val_dst = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in alt_vals])
@@ -99,8 +117,9 @@ def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
                 *[_build.ptr(t) for t in tables], rows, _build.ptr(base_excl),
                 _build.ptr(next_sid), lo, width, nlo, nwidth, n2lo, n2width,
                 int(lookahead), r, a_max, kpb, _build.ptr(hist),
-                _P(hist2.data_ptr() if lookahead else None), _build.ptr(state),
-                _build.ptr(agg), _build.ptr(incl), _build.stream_handle(dev))
+                _P(hist2.data_ptr() if lookahead else None),
+                _build.ptr(scratch), lookback_word_bytes(n),
+                _build.stream_handle(dev))
     _build.check("fused_pass", rc)
     _build.COUNTS["fused_pass"] += 1
     return (hist, hist2) if lookahead else (hist,)
@@ -123,6 +142,9 @@ def fused_counting_pass(src_keys, src_vals, alt_keys, alt_vals, pass_scalars,
 
     Returns ``(new_keys, new_vals, hist_next)`` and, with ``lookahead``,
     ``hist_next2`` as a fourth element; the histograms are (a_max * r,).
+    Rows of count 0 are no-ops (the kernel is quickest when they trail the
+    table, as the planner's pads do); a copy-through or count-0 row must not
+    sit between a region's first row and its later rows.
     """
     sc = [int(v) for v in pass_scalars]
     sc = (sc + [0, 0])[:6]
@@ -132,5 +154,5 @@ def fused_counting_pass(src_keys, src_vals, alt_keys, alt_vals, pass_scalars,
             src_keys, src_vals, alt_keys, alt_vals, sc, *tables, base_excl,
             next_sid, kpb=kpb, r=r, a_max=a_max, n=n, lookahead=lookahead)
     hists = _launch(src_keys, tuple(src_vals), alt_keys, tuple(alt_vals), sc,
-                    tables, base_excl, next_sid, kpb, r, a_max, lookahead)
+                    tables, base_excl, next_sid, kpb, r, a_max, n, lookahead)
     return (alt_keys, tuple(alt_vals), *hists)

@@ -1,11 +1,16 @@
 """Digit histograms: port of ``repro.kernels.histogram.radix_histogram``
 (and, in ``assigned.py``, of ``assigned_histogram``).
 
-On a CUDA tensor the wrappers launch ``csrc/histogram.cu`` (per-warp
-sub-histograms in shared memory with warp-merged increments, the paper's
-Fig. 2 fix for skew); on a CPU tensor they run the plain version in
-``ref.py``.  Keys are any integer dtype; digits use the dtype's own shift
-(logical for unsigned keys).  Digit widths 1..8 only on the card.
+On a CUDA tensor the wrappers launch ``csrc/histogram.cu`` (16-byte
+vector loads, per-warp shared sub-histograms with plain atomics, runs of
+equal digits merged in registers: the paper's Fig. 2 fix for skew); on a
+CPU tensor they run the plain version in ``ref.py``.  Keys are any integer
+dtype; digits use the dtype's own shift (logical for unsigned keys).  Digit
+widths 1..8 only on the card.
+
+The host-side sizing is plain Python: ``aligned_split`` (the scalar head,
+16-byte body and scalar tail of a range) and ``total_grid`` (the prologue's
+CTA count from the SM count).
 """
 from __future__ import annotations
 
@@ -16,11 +21,41 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-#: keys per CTA floor of the whole-array total (keeps the CTA count modest)
-_TOTAL_MIN_CHUNK = 1 << 15
-_TOTAL_MAX_CTAS = 4096
+#: bytes per vector load
+VECTOR_BYTES = 16
+#: threads per CTA (the C side's kHistThreads)
+THREADS = 256
+#: CTAs per SM of the whole-array total
+CTAS_PER_SM = 4
+_SMS: dict = {}
+
+
+def aligned_split(address: int, n: int, elem_bytes: int) -> tuple:
+    """``(head, vectors, tail)`` of ``n`` elements at byte ``address``:
+    ``head`` elements up to the first 16-byte boundary, then ``vectors``
+    whole 16-byte vectors, then ``tail`` elements."""
+    if address % elem_bytes:
+        raise ValueError("address is not aligned to the element size")
+    head = min(n, (-address) % VECTOR_BYTES // elem_bytes)
+    per = VECTOR_BYTES // elem_bytes
+    vectors = (n - head) // per
+    return head, vectors, n - head - vectors * per
+
+
+def total_grid(vectors: int, sms: int) -> int:
+    """CTAs of the whole-array total: ``CTAS_PER_SM`` per SM, fewer when
+    the vectors would not give each thread two."""
+    return max(1, min(sms * CTAS_PER_SM, -(-vectors // (2 * THREADS))))
+
+
+def sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def check_width(width: int) -> None:
@@ -31,14 +66,18 @@ def check_width(width: int) -> None:
 
 def _launch(keys, n, chunk, grid, shift, width, out, accumulate,
             logical=False):
+    """``grid`` None: the whole-array total's grid from the SM count."""
     check_width(width)
     keys, unsigned = ref.signed_bits(keys)
     logical = logical or unsigned
     _build.check_cuda(keys, out)
+    head, vectors, _ = aligned_split(keys.data_ptr(), n, keys.element_size())
+    if grid is None:
+        grid = total_grid(vectors, sm_count(keys.device))
     fn = _build.function("histogram", "radix_histogram_launch", _ARGS)
     with torch.cuda.device(keys.device):
-        rc = fn(_build.ptr(keys), n, keys.element_size(), chunk, grid, shift,
-                width, int(logical), _build.ptr(out), accumulate,
+        rc = fn(_build.ptr(keys), n, keys.element_size(), chunk, grid, head,
+                shift, width, int(logical), _build.ptr(out), accumulate,
                 _build.stream_handle(keys.device))
     _build.check("histogram", rc)
     _build.COUNTS["histogram"] += 1
@@ -62,16 +101,13 @@ def digit_total(keys: torch.Tensor, n: int, shift: int,
     buffer (unsigned bits in a signed dtype: digits shift logically).
 
     The main path's prologue: the sum over tiles of ``radix_histogram``,
-    computed without the (T, r) rows — each CTA adds its counts into one
-    total.
+    computed without the (T, r) rows — a grid sized from the SM count
+    strides over the keys and each CTA adds its counts into one total.
     """
     if _build.on_cpu(keys):
         return ref.radix_histogram_ref(keys[:n].reshape(1, -1), shift,
                                        width)[0]
     out = torch.zeros(1 << width, dtype=torch.int32, device=keys.device)
     if n:
-        chunk = max(_TOTAL_MIN_CHUNK, -(-n // _TOTAL_MAX_CTAS))
-        chunk = -(-chunk // 32) * 32
-        _launch(keys, n, chunk, -(-n // chunk), shift, width, out, 1,
-                logical=True)
+        _launch(keys, n, n, None, shift, width, out, 1, logical=True)
     return out

@@ -304,3 +304,253 @@ def test_library_kernels_refuse_widths_above_8(dev):
         assigned.assigned_histogram(keys, idx, idx, 0, 9)
     with pytest.raises(ValueError, match="widths 1..8"):
         histogram.radix_histogram(keys, 0, 9)
+
+
+# ---- the redesigned histogram and fused pass (vector loads, match-free
+# counting, packed look-back, staged scatter) ------------------------------
+
+_KEY_DTYPES = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+def _carrier(a):
+    """numpy unsigned keys -> the carrier tensor (signed twin, same bits)."""
+    return torch.from_numpy(a.view(np.dtype(f"i{a.dtype.itemsize}")))
+
+
+@pytest.mark.parametrize("key_bytes", [1, 2, 4, 8])
+@pytest.mark.parametrize("keys", ["uniform", "all_equal", "and3"])
+def test_histogram_vector_paths_equal_plain(dev, key_bytes, keys):
+    from repro_torch.kernels import histogram, ref
+    rng = np.random.default_rng(key_bytes)
+    bits = 8 * key_bytes
+    x = rng.integers(0, 2**bits, 70001, dtype=_KEY_DTYPES[key_bytes])
+    if keys == "all_equal":
+        x[:] = x[0]
+    elif keys == "and3":
+        for _ in range(3):
+            x &= rng.integers(0, 2**bits, x.size, dtype=x.dtype)
+    t = _carrier(x).to(dev)
+    for width in range(1, 9):
+        shift = bits - width
+        # odd n, unaligned starts (views 1..3 keys in), a short tail
+        for view, n in ((t, t.numel()), (t[1:], 4097), (t[3:], 17),
+                        (t[1:], 3), (t[2:], t.numel() - 2)):
+            got = histogram.digit_total(view, n, shift, width)
+            want = ref.radix_histogram_ref(view[:n].reshape(1, -1), shift,
+                                           width)[0]
+            assert torch.equal(got, want), (width, n)
+        tiles = t[:103 * 679].reshape(-1, 103)       # rows of odd length
+        assert torch.equal(histogram.radix_histogram(tiles, shift, width),
+                           ref.radix_histogram_ref(tiles, shift, width))
+
+
+_LEAF_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
+                torch.float16, torch.bfloat16, torch.float32, torch.float64)
+
+
+def _pass_inputs(dev, rng, n, key_bytes, d, pass_idx, bounds, a_max, kpb,
+                 n_leaves, all_equal=False):
+    """One pass's buffers and tables: keys of ``key_bytes`` in the given
+    active segments (``bounds``: (base, size)), ``n_leaves`` value leaves
+    of mixed widths, the tables of ``plan.make_region_blocks`` and a
+    next-segment map with some done buckets."""
+    from repro_torch.core import plan
+    from repro_torch.kernels import fused
+    bits = 8 * key_bytes
+    x = rng.integers(0, 2**bits, n, dtype=_KEY_DTYPES[key_bytes])
+    if all_equal:
+        x[:] = x[n // 2]
+    sc = plan.digit_window(pass_idx, bits, d)
+    lo, width = sc[0], sc[1]
+    r = 1 << d
+    base = np.array([b for b, _ in bounds] + [n] * (a_max - len(bounds)),
+                    np.int32)
+    size = np.array([s for _, s in bounds] + [0] * (a_max - len(bounds)),
+                    np.int32)
+    hist = np.zeros((a_max, r), np.int64)
+    for i, (b, s) in enumerate(bounds):
+        dig = (x[b:b + s] >> np.array(lo, x.dtype)) & np.array(
+            (1 << width) - 1, x.dtype)
+        hist[i] = np.bincount(dig.astype(np.int64), minlength=r)
+    base_excl = (base[:, None] + np.cumsum(hist, 1) - hist).astype(np.int32)
+    nsid = rng.integers(0, a_max + 2, a_max * r).astype(np.int32)
+    blocks = plan.make_region_blocks(
+        torch.from_numpy(base).to(dev), torch.from_numpy(size).to(dev), n,
+        kpb, plan.max_region_blocks(n, kpb, a_max))
+    leaves = tuple(
+        torch.from_numpy(rng.integers(-2**62, 2**62, n)).to(dev)
+        .to(torch.int64).view(torch.float64).to(dt) if dt.is_floating_point
+        else torch.from_numpy(rng.integers(-2**62, 2**62, n)).to(dev).to(dt)
+        for dt in _LEAF_DTYPES[:n_leaves])
+    (ck, cv), _ = fused.make_ping_pong(_carrier(x).to(dev), leaves, kpb)
+    return dict(keys=ck, vals=cv, sc=sc, tables=tuple(blocks),
+                base_excl=torch.from_numpy(base_excl).to(dev),
+                nsid=torch.from_numpy(nsid).to(dev),
+                kw=dict(kpb=kpb, r=r, a_max=a_max, n=n))
+
+
+def _run_pass(fn, inp, lookahead, **extra):
+    alt_k = torch.full_like(inp["keys"], -1)
+    alt_v = tuple(torch.zeros_like(v) for v in inp["vals"])
+    return fn(inp["keys"], inp["vals"], alt_k, alt_v, inp["sc"],
+              *inp["tables"], inp["base_excl"], inp["nsid"],
+              lookahead=lookahead, **inp["kw"], **extra)
+
+
+def _assert_pass_bytes_equal(got, want, n):
+    from repro_torch.kernels.ref import int_view
+    assert torch.equal(got[0][:n], want[0][:n])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(int_view(a[:n]), int_view(b[:n]))
+    assert len(got) == len(want)
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("key_bytes", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [1, 3, 5, 8])
+def test_fused_kernel_widths_equal_plain(dev, key_bytes, d):
+    """Key widths 1-8 bytes, digit widths, unaligned row starts (segments
+    at odd offsets), gaps copied through, 8 value leaves of mixed widths,
+    lookahead on and off."""
+    from repro_torch.kernels import fused, ref
+    if 8 * key_bytes < d:
+        pytest.skip("digit wider than the key")
+    rng = np.random.default_rng(key_bytes * 10 + d)
+    n = 20011
+    bounds = [(3, 5000), (5005, 1), (5007, 9001), (14011, 5997)]
+    inp = _pass_inputs(dev, rng, n, key_bytes, d, 0, bounds, 6, 1152, 8)
+    for lookahead in (False, True):
+        want = _run_pass(ref.fused_counting_pass_ref, inp, lookahead)
+        got = _run_pass(fused.fused_counting_pass, inp, lookahead)
+        torch.cuda.synchronize()
+        _assert_pass_bytes_equal(got, want, n)
+
+
+@pytest.mark.parametrize("case", ["all_equal", "later_pass", "narrow_last",
+                                  "one_region"])
+def test_fused_kernel_cases_equal_plain(dev, case):
+    """All-equal keys (one digit run per row: long-run tables), a later
+    pass (many short regions), the last pass narrower than d, and one
+    region of many rows (a long look-back chain) at KPB 6912."""
+    from repro_torch.kernels import fused, ref
+    rng = np.random.default_rng(len(case))
+    n = 1 << 18
+    if case == "all_equal":
+        inp = _pass_inputs(dev, rng, n, 4, 8, 0, [(0, n)], 2, 6912, 1,
+                           all_equal=True)
+    elif case == "later_pass":
+        cuts = np.sort(rng.choice(np.arange(1, n), 300, replace=False))
+        edges = np.concatenate([[0], cuts, [n]])
+        bounds = [(int(a), int(b - a)) for a, b in zip(edges[:-1], edges[1:])
+                  if b - a > 40][:200]
+        inp = _pass_inputs(dev, rng, n, 4, 8, 1, bounds, 256, 6912, 2)
+    elif case == "narrow_last":
+        inp = _pass_inputs(dev, rng, n, 4, 7, 4, [(5, n - 9)], 3, 6912, 1)
+    else:
+        inp = _pass_inputs(dev, rng, n, 4, 8, 0, [(0, n)], 2, 640, 3)
+    for lookahead in (False, True):
+        want = _run_pass(ref.fused_counting_pass_ref, inp, lookahead)
+        got = _run_pass(fused.fused_counting_pass, inp, lookahead)
+        torch.cuda.synchronize()
+        _assert_pass_bytes_equal(got, want, n)
+
+
+def test_fused_kernel_64bit_lookback_words(dev):
+    """One keys-only pass of 2^30 + 7 all-equal keys: a digit count passes
+    2^30, so the look-back uses 64-bit words.  The plain version's int64
+    temporaries for 2^30 keys do not fit the card; its result here is
+    closed-form (checked against it at 2^20 + 7 below): every key lands in
+    [0, n), the buffer past n is untouched, and the one next-digit bin of
+    the segment counts n."""
+    from repro_torch.kernels import fused, ref
+    assert fused.lookback_word_bytes((1 << 30) + 7) == 8
+    for n in ((1 << 20) + 7, (1 << 30) + 7):
+        kpb = 6912
+        key = 0x5A3C_F00D
+        keys = torch.full((fused.pad_length(n, kpb),), key,
+                          dtype=torch.int32, device=dev)
+        keys[n:] = -1
+        a_max, r = 2, 256
+        blocks = _region(dev, n, kpb, a_max)
+        base_excl = torch.zeros((a_max, r), dtype=torch.int32, device=dev)
+        base_excl[0, (key >> 24) + 1:] = n
+        base_excl[1] = n
+        nsid = torch.full((a_max * r,), a_max, dtype=torch.int32, device=dev)
+        nsid[key >> 24] = 0
+        sc = (24, 8, 16, 8, 8, 8)
+        alt = torch.full_like(keys, 7)
+        got = fused.fused_counting_pass(
+            keys, (), alt, (), sc, *blocks, base_excl, nsid, kpb=kpb, r=r,
+            a_max=a_max, n=n, lookahead=True)
+        torch.cuda.synchronize()
+        want_hist = torch.zeros(a_max * r, dtype=torch.int32, device=dev)
+        want_hist[(key >> 16) & 255] = n
+        want_hist2 = torch.zeros_like(want_hist)
+        want_hist2[(key >> 8) & 255] = n
+        if n < 1 << 21:
+            plain = ref.fused_counting_pass_ref(
+                keys, (), torch.full_like(keys, 7), (), sc, *blocks,
+                base_excl, nsid, kpb=kpb, r=r, a_max=a_max, n=n,
+                lookahead=True)
+            _assert_pass_bytes_equal(got, plain, n)
+        assert bool((got[0][:n] == key).all())
+        assert bool((got[0][n:] == 7).all())
+        assert torch.equal(got[2], want_hist)
+        assert torch.equal(got[3], want_hist2)
+        del keys, alt, got
+        torch.cuda.empty_cache()
+
+
+def _region(dev, n, kpb, a_max):
+    from repro_torch.core import plan
+    base = torch.full((a_max,), n, dtype=torch.int32, device=dev)
+    size = torch.zeros_like(base)
+    base[0], size[0] = 0, n
+    return tuple(plan.make_region_blocks(base, size, n, kpb,
+                                         plan.max_region_blocks(n, kpb,
+                                                                a_max)))
+
+
+def test_fused_kernel_inert_rows_mid_table(dev):
+    """Count-0 rows between regions are no-ops, however many: more of them
+    than CTAs fit the card at once, before two region starts mid-table."""
+    from repro_torch.kernels import fused, ref
+    rng = np.random.default_rng(14)
+    n = 1 << 18
+    cuts = np.sort(rng.choice(np.arange(1, n), 40, replace=False))
+    edges = np.concatenate([[0], cuts, [n]])
+    bounds = [(int(a), int(b - a)) for a, b in zip(edges[:-1], edges[1:])
+              if b - a > 2000]
+    inp = _pass_inputs(dev, rng, n, 4, 8, 1, bounds, 64, 1152, 2)
+    want = _run_pass(ref.fused_counting_pass_ref, inp, True)
+    seg, off, reset, count, active = (t.cpu() for t in inp["tables"])
+    starts = torch.nonzero((reset == 1) & (count > 0)).flatten().tolist()
+    live = int((count > 0).sum())
+    at = sorted({starts[len(starts) // 3], starts[2 * len(starts) // 3]})
+    assert 0 < at[0] < live
+    pieces = [[] for _ in range(5)]
+    prev = 0
+    for g, pad in zip(at, (1200, 300)):
+        for piece, t, fill in zip(pieces, (seg, off, reset, count, active),
+                                  (64, 0, 1, 0, 0)):
+            piece += [t[prev:g], t.new_full((pad,), fill)]
+        prev = g
+    inp["tables"] = tuple(torch.cat(piece + [t[prev:]]).to(dev) for piece, t
+                          in zip(pieces, (seg, off, reset, count, active)))
+    got = _run_pass(fused.fused_counting_pass, inp, True)
+    torch.cuda.synchronize()
+    _assert_pass_bytes_equal(got, want, n)
+
+
+def test_fused_kernel_refuses_rows_over_shared_memory(dev):
+    """A KPB whose row does not fit one CTA's shared memory raises."""
+    from repro_torch.kernels import fused
+    keys = torch.zeros(2 * 65536, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="fused_pass"):
+        _run_pass(fused.fused_counting_pass, dict(
+            keys=keys, vals=(), sc=(0, 8, 0, 0), tables=_region(
+                dev, 65536, 65536, 2),
+            base_excl=torch.zeros((2, 256), dtype=torch.int32, device=dev),
+            nsid=torch.zeros(512, dtype=torch.int32, device=dev),
+            kw=dict(kpb=65536, r=256, a_max=2, n=65536)), False)

@@ -1,6 +1,7 @@
 """Rules every slice of the port is held to.
 
-* No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+* No module under ``src/repro_torch/``, not ``chip_smoke.py`` and no
+  ``scripts/torch_*.py`` probe imports
   ``jax`` or the reference package ``repro`` (checked on the source's AST
   and on ``sys.modules`` after importing the port in a fresh interpreter).
 * No quiet move to the CPU: a numpy input with no ``device=`` goes to the
@@ -27,7 +28,8 @@ BANNED = {"jax", "jaxlib", "repro"}
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] +
+            sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported_roots(path):

@@ -87,9 +87,11 @@ def test_initial_histogram_equals_reference(rng, n, kpb, lo, width):
 # --------------------------- fused counting pass ---------------------------
 
 def _fused_both(rng, x, bounds, n, kpb, sc, nsid, a_max, r, vals=(),
-                batch=None, lookahead=False):
+                batch=None, lookahead=False, inert=0):
     """One fused pass through the reference kernel (interpret mode) and the
-    port's plain version on the same tables; returns both outputs."""
+    port's plain version on the same tables; returns both outputs.  With
+    ``inert``, the port's flat table gets that many count-0 rows before
+    every region start but the first."""
     lo, width = int(sc[0]), int(sc[1])
     base = np.array([b for b, _ in bounds] + [n] * (a_max - len(bounds)),
                     np.int32)
@@ -114,6 +116,16 @@ def _fused_both(rng, x, bounds, n, kpb, sc, nsid, a_max, r, vals=(),
         want = jax.tree.map(np.asarray, want)
     tblocks = tplan.make_region_blocks(_t(base), _t(size), n, kpb, g_max,
                                        batch=batch)
+    if inert:
+        fills = (a_max, 0, 1, 0, 0)            # seg, off, reset, count, active
+        starts = torch.nonzero((tblocks.reset == 1) & (tblocks.count > 0))
+        cuts = [0] + starts.flatten().tolist()[1:] + [g_max]
+        tblocks = type(tblocks)(*(torch.cat(sum(
+            ([t[a:b], t.new_full((inert,), f)] for a, b in
+             zip(cuts[:-1], cuts[1:])), [])[:-1])
+            for t, f in zip(tblocks, fills)))
+        assert len(cuts) > 2
+        assert tblocks.count.numel() == g_max + inert * (len(cuts) - 2)
     (tk, tv), (tak, tav) = tfused.make_ping_pong(
         _t(x), tuple(_t(v) for v in vals), kpb)
     got = tfused.fused_counting_pass(
@@ -158,6 +170,20 @@ def test_fused_values_and_next_histograms(rng, batch, lookahead):
                             nsid, a_max=1, r=256, vals=vals, batch=batch,
                             lookahead=lookahead)
     assert len(got) == (4 if lookahead else 3)
+    _assert_pass_equal(want, got, n)
+
+
+@pytest.mark.parametrize("inert", [1, 4, 64])
+@pytest.mark.parametrize("lookahead", [False, True])
+def test_fused_inert_rows_between_regions_are_noops(rng, inert, lookahead):
+    """Count-0 rows between regions leave the pass as the reference makes
+    it."""
+    n = 3000
+    x = rng.integers(0, 2**32, n, dtype=np.uint32)
+    nsid = np.where(np.arange(3 * 256) % 5 == 0, 1, 3)
+    want, got = _fused_both(rng, x, [(0, 700), (1000, 1300), (2500, 300)],
+                            n, 128, [0, 8, 8, 8, 16, 8], nsid, a_max=3,
+                            r=256, lookahead=lookahead, inert=inert)
     _assert_pass_equal(want, got, n)
 
 
@@ -240,3 +266,49 @@ def test_local_sort_class_plan_equals_reference():
                               (1 << 28, 16384, 208339)]:
         assert tops.local_sort_class_plan(n, row_len, s_max) == \
             jops.local_sort_class_plan(n, row_len, s_max)
+
+
+# ------------------- host-side sizing of the CUDA kernels -------------------
+
+@pytest.mark.parametrize("address,n,elem,want", [
+    (0, 1000, 4, (0, 250, 0)),          # aligned, whole vectors
+    (4, 1000, 4, (3, 249, 1)),          # keys[1:] of an aligned buffer
+    (12, 1000, 4, (1, 249, 3)),
+    (8, 7, 8, (1, 3, 0)),               # int64, odd n
+    (0, 7, 8, (0, 3, 1)),
+    (1, 100, 1, (15, 5, 5)),            # uint8
+    (2, 3, 2, (3, 0, 0)),               # shorter than its head
+    (16, 0, 4, (0, 0, 0)),
+])
+def test_histogram_aligned_split(address, n, elem, want):
+    from repro_torch.kernels.histogram import aligned_split
+    head, vectors, tail = aligned_split(address, n, elem)
+    assert (head, vectors, tail) == want
+    assert head + vectors * (16 // elem) + tail == n
+    assert head == n or (address + head * elem) % 16 == 0
+
+
+def test_histogram_aligned_split_refuses_misaligned_elements():
+    from repro_torch.kernels.histogram import aligned_split
+    with pytest.raises(ValueError, match="element size"):
+        aligned_split(2, 10, 4)
+
+
+@pytest.mark.parametrize("vectors,sms,want", [
+    (1 << 26, 132, 528),                # 2^28 uint32 keys on an H100
+    (1 << 26, 114, 456),
+    (1000, 132, 2),                     # a small input: two vectors a thread
+    (1, 132, 1), (0, 132, 1),
+])
+def test_histogram_total_grid(vectors, sms, want):
+    from repro_torch.kernels.histogram import total_grid
+    assert total_grid(vectors, sms) == want
+
+
+@pytest.mark.parametrize("n,word", [(0, 4), ((1 << 30) - 1, 4),
+                                    (1 << 30, 8), ((1 << 30) + 7, 8),
+                                    ((1 << 31) - 1, 8)])
+def test_fused_lookback_word_width(n, word):
+    assert tfused.lookback_word_bytes(n) == word
+    rows = -(-max(n, 1) // 6912)
+    assert tfused.lookback_scratch_bytes(rows, 256, n) == 16 + rows * 256 * word
