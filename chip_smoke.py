@@ -17,7 +17,10 @@ just after:
   integer equality; the histogram also on all-equal keys, on views that
   start off a 16-byte boundary and on int64 keys; the fused pass on the
   KV and keys-only passes and on the four passes of the AND-3 keys, whose
-  later rows start unaligned), every sort is checked byte for byte against
+  later rows start unaligned; the local sort on every class of the KV and
+  keys-only sorts, moving the value leaves as the main path does and
+  writing positions, beside ``torch.sort(stable=True)`` of the same buffer
+  with the value gather), every sort is checked byte for byte against
   ``torch.sort(stable=True)`` of the ordered-bits carrier, the launch census
   is checked and one sort is profiled;
 * the library surface, each public entry point of
@@ -169,8 +172,9 @@ def build():
 def capture(torch, keys, values, passes=2):
     """Run ``hybrid_sort`` once, recording clones of the arguments of its
     first ``passes`` fused passes, of its merge_rows calls and of its
-    local-sort launches (the buffer before the first class, then the class
-    tables).  The recording run is not the counted main-path run."""
+    local-sort launches (the key buffer and value leaves before the first
+    class, then the class tables).  The recording run is not the counted
+    main-path run."""
     from repro_torch.core import plan
     from repro_torch.kernels import fused, ops
     from repro_torch import hybrid_sort
@@ -195,12 +199,12 @@ def capture(torch, keys, values, passes=2):
             rec["merge"].append((hist.clone(), lt, mt))
         return orig_merge(hist, lt, mt)
 
-    def seg_hook(buf, perm, starts, sizes, length):
+    def seg_hook(buf, perm, starts, sizes, length, leaves=()):
         if rec["buf"] is None:
             rec["buf"] = buf.clone()
-            rec["with_perm"] = perm is not None
+            rec["leaves"] = tuple(v.clone() for v in leaves)
         rec["classes"].append((starts.clone(), sizes.clone(), length))
-        return orig_seg(buf, perm, starts, sizes, length)
+        return orig_seg(buf, perm, starts, sizes, length, leaves)
 
     fused.fused_counting_pass = pass_hook
     plan.merge_rows = merge_hook
@@ -351,46 +355,108 @@ def check_merge_rows(torch, rec, reps):
     return res
 
 
-def check_local_sort(torch, rec, reps):
-    from repro_torch.kernels import bitonic, ref
-    buf_k = rec["buf"].clone()
-    buf_p = rec["buf"].clone()
-    n = buf_k.shape[0]
-    with_perm = rec["with_perm"]
-    dev = buf_k.device
-    perm_k = torch.arange(n, dtype=torch.int32, device=dev) if with_perm else None
-    perm_p = perm_k.clone() if with_perm else None
-    total_ms = total_plain = total_bound = 0.0
-    err = 0
+def _local_sort_run(torch, fn, rec, perm):
+    """The main path's local sort, class by class, on fresh copies of the
+    captured buffer and leaves (``perm``: positions written, no leaves);
+    yields after each class."""
+    buf = rec["buf"].clone()
+    leaves = () if perm else tuple(v.clone() for v in rec["leaves"])
+    p = (torch.arange(buf.shape[0], dtype=torch.int32, device=buf.device)
+         if perm else None)
+    out = [buf, *leaves] + ([p] if perm else [])
     for starts, sizes, length in rec["classes"]:
-        live = int((sizes > 0).sum())
-        keys_live = int(sizes.sum())
-        bitonic.sort_segments_stable(buf_k, perm_k, starts, sizes, length)
-        ref.sort_segments_ref(buf_p, perm_p, starts, sizes, length)
-        pairs = [(buf_k, buf_p)] + ([(perm_k, perm_p)] if with_perm else [])
-        e = max_abs_err(torch, pairs)
-        need(e == 0, f"local sort class L={length} != plain")
-        err = max(err, e)
+        fn(buf, p, starts, sizes, length, leaves)
+        yield out
+
+
+def check_local_sort(torch, rec, reps, label):
+    """The local sort on the main path's classes, in its leaf mode (keys
+    and value leaves moved in place: the main path) and in perm mode
+    (positions written), against its plain version after every class, each
+    class timed; then the yardstick: ``torch.sort(stable=True)`` of the same
+    buffer with the value gather, which gives the same bytes there (every
+    bucket is done and the buckets lie in prefix order)."""
+    from repro_torch.core import bijection
+    from repro_torch.kernels import bitonic, ref
+    n = rec["buf"].shape[0]
+    kb = rec["buf"].element_size()
+    vb = sum(v.element_size() for v in rec["leaves"])
+    res = {}
+    for mode in ("leaves", "perm"):
+        perm = mode == "perm"
+        err = 0
+        got = _local_sort_run(torch, bitonic.sort_segments_stable, rec, perm)
+        want = _local_sort_run(torch, ref.sort_segments_ref, rec, perm)
+        classes = []
+        for (starts, sizes, length), g, w in zip(rec["classes"], got, want):
+            e = max_abs_err(torch, list(zip(g, w)))
+            need(e == 0, f"local sort ({label}, {mode}) class L={length} "
+                 f"!= plain")
+            err = max(err, e)
+            classes.append((starts, sizes, length))
+        final = g
+        del got, want, w
         scratch = rec["buf"].clone()
-        sp = torch.arange(n, dtype=torch.int32, device=dev) if with_perm else None
-        ms = cuda_ms(torch, lambda: bitonic.sort_segments_stable(
-            scratch, sp, starts, sizes, length), reps,
-            setup=lambda: scratch.copy_(rec["buf"]))
-        plain = cuda_ms(torch, lambda: ref.sort_segments_ref(
-            scratch, sp, starts, sizes, length), 1,
-            setup=lambda: scratch.copy_(rec["buf"]))
-        kb = buf_k.element_size()
-        nbytes = keys_live * (2 * kb + (4 if with_perm else 0)) + \
-            starts.numel() * 8
-        total_ms += ms
-        total_plain += plain
-        total_bound += bound_ms(nbytes)
-        emit({"phase": "kernel_check", "kernel": "local_sort", "L": length,
-              "rows": starts.numel(), "live_rows": live, "keys": keys_live,
-              "equal": True, "ms": ms, "plain_ms": plain,
-              "bound_ms": bound_ms(nbytes)})
+        sleaves = () if perm else tuple(v.clone() for v in rec["leaves"])
+        sp = (torch.empty(n, dtype=torch.int32, device=scratch.device)
+              if perm else None)
+
+        def reset():
+            scratch.copy_(rec["buf"])
+            for a, b in zip(sleaves, rec["leaves"]):
+                a.copy_(b)
+            if perm:
+                torch.arange(n, out=sp)
+
+        total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for starts, sizes, length in classes:
+            live = int((sizes > 0).sum())
+            keys_live = int(sizes.sum())
+            ms = cuda_ms(torch, lambda: bitonic.sort_segments_stable(
+                scratch, sp, starts, sizes, length, sleaves), reps,
+                setup=reset)
+            plain = cuda_ms(torch, lambda: ref.sort_segments_ref(
+                scratch, sp, starts, sizes, length, sleaves), 1, setup=reset)
+            # keys read and written; each leaf read and written, or a
+            # position written; the size table and the live rows' starts
+            nbytes = (keys_live * (2 * kb + (4 if perm else 2 * vb)) +
+                      sizes.numel() * 4 + live * 4)
+            total["ms"] += ms
+            total["plain_ms"] += plain
+            total["bound_ms"] += bound_ms(nbytes)
+            emit({"phase": "kernel_check", "kernel": "local_sort",
+                  "case": label, "mode": mode, "L": length,
+                  "rows": sizes.numel(), "live_rows": live,
+                  "keys": keys_live, "equal": True, "ms": ms,
+                  "plain_ms": plain, "bound_ms": bound_ms(nbytes)})
+        res[mode] = dict(total, max_abs_err=err)
+        if not perm:
+            res["final"] = final
+        del scratch, sleaves, sp
+    # the yardstick on the same buffer, checked against the kernel's result
+    lib_leaves = rec["leaves"]
+
+    def library():
+        s = torch.sort(bijection.sortable(rec["buf"]), stable=True)
+        return [s.values] + [v[s.indices] for v in lib_leaves]
+
+    lib = library()
+    final = res.pop("final")
+    need(torch.equal(bijection.sortable(final[0]), lib[0]) and
+         all(torch.equal(a, b) for a, b in zip(final[1:], lib[1:])),
+         f"local sort ({label}) != torch.sort(stable=True) of its buffer")
+    del lib, final
+    lib_ms = cuda_ms(torch, library, reps)
+    out = dict(res["leaves"], library_ms=lib_ms, perm_ms=res["perm"]["ms"],
+               perm_bound_ms=res["perm"]["bound_ms"],
+               max_abs_err=max(res["leaves"]["max_abs_err"],
+                               res["perm"]["max_abs_err"]))
+    emit({"phase": "kernel_check", "kernel": "local_sort_total",
+          "case": label, "n": n, "leaves": len(rec["leaves"]),
+          "classes": len(rec["classes"]), "equal": True, **out})
     # the (S, L) table contract at the widest class shape
     length = rec["classes"][-1][2]
+    dev = rec["buf"].device
     gen = torch.Generator(device=dev).manual_seed(5)
     keys = torch.randint(-2**31, 2**31 - 1, (64, length), generator=gen,
                          device=dev, dtype=torch.int64).to(torch.int32)
@@ -402,8 +468,7 @@ def check_local_sort(torch, rec, reps):
     need(e == 0, "bitonic_sort_rows_stable != plain")
     emit({"phase": "kernel_check", "kernel": "local_sort_rows",
           "shape": [64, length], "equal": True})
-    return dict(ms=total_ms, plain_ms=total_plain, bound_ms=total_bound,
-                max_abs_err=max(err, e))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1184,9 +1249,10 @@ def run(args) -> int:
     fused_res = [check_fused(torch, r, n, f"kv_pass{i}", args.reps)
                  for i, r in enumerate(rec_kv["passes"])]
     merge_res = check_merge_rows(torch, rec_kv["merge"][0], args.reps)
-    local_res = check_local_sort(torch, rec_kv, args.reps)
+    local_res = check_local_sort(torch, rec_kv, args.reps, "kv")
     del rec_kv
     rec_k = capture(torch, keys, None)
+    check_local_sort(torch, rec_k, args.reps, "keys")
     for i, r in enumerate(rec_k["passes"]):
         check_fused(torch, r, n, f"keys_pass{i}", args.reps)
         plain = dict(r, kw=dict(r["kw"], lookahead=False))
@@ -1248,7 +1314,7 @@ def run(args) -> int:
         dict(name="local_sort", route="cuda", source=src + "local_sort.cu",
              replaces="src/repro/kernels/bitonic.py:94",
              launches=launches["local_sort"], **_k(local_res),
-             bound_by="bytes", library_ms=None),
+             bound_by="bytes", library_ms=local_res["library_ms"]),
         dict(name="merge_rows", route="cuda", source=src + "merge_rows.cu",
              replaces="src/repro/core/plan.py:250",
              launches=launches["merge_rows"], **_k(merge_res),

@@ -39,7 +39,7 @@ import torch
 from repro_torch.core import bijection, interop, model, plan
 from repro_torch.core.ranks import resolve_engine, stable_partition_dest
 from repro_torch.kernels import _build, fused
-from repro_torch.kernels.ops import (apply_run_copies, local_sort_class_plan,
+from repro_torch.kernels.ops import (local_sort_class_plan,
                                      segmented_local_sort, static_nonzero)
 
 _I32 = torch.int32
@@ -144,9 +144,9 @@ def _local_sort(ukeys, leaves, seg_id, done):
 
 def _local_sort_kernel(keys, leaves, seg_id, done, *, s_max, row_len,
                        classes):
-    """Kernel-engined finish: done buckets sorted in place in ``keys`` (a
-    view of the ping-pong buffer), one launch per size class, then the
-    values gathered through the returned permutation."""
+    """Kernel-engined finish: done buckets sorted in place in ``keys`` and
+    the value ``leaves`` (views of the ping-pong buffers), one launch per
+    size class."""
     n = keys.shape[0]
     boundary = torch.ones(n, dtype=torch.bool, device=keys.device)
     boundary[1:] = seg_id[1:] != seg_id[:-1]
@@ -155,11 +155,9 @@ def _local_sort_kernel(keys, leaves, seg_id, done, *, s_max, row_len,
     sizes = ends - starts
     sortable = (done[torch.clamp(starts, 0, n - 1).to(torch.int64)] &
                 (starts < n))
-    perm = (torch.arange(n, dtype=_I32, device=keys.device) if leaves
-            else None)
     segmented_local_sort(keys, starts, sizes, sortable, row_len,
-                         classes=classes, perm=perm)
-    return keys, list(apply_run_copies(perm, leaves))
+                         classes=classes, leaves=leaves)
+    return keys, leaves
 
 
 def _local_row_len(n: int, cfg: model.SortConfig) -> int:

@@ -5,9 +5,12 @@ fused      — one launch per counting pass: stable partition + scatter of
              pass i fused with the digit histogram of pass i+1 (ports
              ``_fused_pass_kernel``)
 bitonic    — the stable shared-memory local sort (ports
-             ``_bitonic_stable_kernel``) and the library's min/max row
-             network (ports ``_bitonic_kernel``, ``_bitonic_kv_kernel``)
-ops        — the local-sort finish around it (size classes, value gather),
+             ``_bitonic_stable_kernel``: a per-bucket radix sort on the
+             main path, a bitonic network for the (S, L) rows) and the
+             library's min/max row network (ports ``_bitonic_kernel``,
+             ``_bitonic_kv_kernel``)
+ops        — the local-sort finish around it (size classes; value leaves
+             moved in place, or a permutation for the gather),
              ``kernel_local_sort``, ``tile_histogram_pass``
 merge      — the out-of-core sort's k-way merge-path round (ports
              ``_kway_merge_kernel``) and its partition math
@@ -22,7 +25,8 @@ _build     — nvcc build at first use, ctypes loading, launch counters
 
 The package exports the reference's library surface by its names.
 ``segmented_local_sort`` and ``apply_run_copies`` keep the port's
-signatures (an in-place sort and a permutation gather; see ``ops``).
+signatures (an in-place sort that moves value leaves or writes a
+permutation, and that permutation's gather; see ``ops``).
 
 The sources live in ``csrc/``.  Each wrapper launches its kernel for CUDA
 tensors and runs the plain version for CPU tensors; it never falls back

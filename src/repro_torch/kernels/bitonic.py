@@ -1,13 +1,14 @@
 """Bitonic row sorts: port of ``repro.kernels.bitonic``.
 
-The stable local sort launches ``csrc/local_sort.cu`` on CUDA tensors (one
-CTA sorts one row of (key, position) pairs with a bitonic network in shared
-memory):
+The stable local sort launches ``csrc/local_sort.cu`` on CUDA tensors:
 
-  * ``bitonic_sort_rows_stable`` — the reference's (S, L) table contract;
+  * ``bitonic_sort_rows_stable`` — the reference's (S, L) table contract:
+    one CTA sorts one row of (key, idx) pairs with a bitonic network in
+    shared memory;
   * ``sort_segments_stable``     — the main path: one launch per size
-    class sorts buckets of the key buffer in place, without a padded table
-    in device memory.
+    class sorts buckets of the key buffer in place, each by a shared-memory
+    LSD radix sort over the bits its keys do not share, and moves the value
+    leaves in place with them; no padded table exists in device memory.
 
 The library's min/max network launches ``csrc/bitonic_rows.cu``:
 
@@ -27,11 +28,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.fused import MAX_LEAVES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ROWS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P]
-_SEG_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SEG_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P]
 _NET_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 #: the opt-in shared memory one CTA may use on Hopper
 SMEM_LIMIT = 232448
@@ -121,27 +123,50 @@ def bitonic_sort_rows_stable(keys: torch.Tensor, idx: torch.Tensor):
 
 
 def sort_segments_stable(buf: torch.Tensor, perm, starts: torch.Tensor,
-                         sizes: torch.Tensor, length: int) -> None:
+                         sizes: torch.Tensor, length: int, leaves=(), *,
+                         window_bits: int = 0, ctas: int = 0) -> None:
     """Sort the buckets ``buf[start:start+size]`` (every size <= ``length``,
-    a power of two; size 0 rows are skipped) in place by (key, position).
+    a power of two; size 0 rows are skipped) in place by (key, position),
+    and move each of ``leaves`` (1-D, as long as ``buf``, 1, 2, 4 or 8-byte
+    elements, at most ``MAX_LEAVES``) in place with its keys.
 
-    ``perm`` (int32, same length as ``buf``, or None) receives each sorted
-    slot's source position — the value gather of the finish.
+    ``perm`` (int32, as long as ``buf``, or None) receives each sorted
+    slot's source position.  The plain version (CPU) also takes leaves of
+    more dimensions, and any number of them, moved along their first.
+
+    Two knobs of the kernel, for timing only (the CPU ignores them):
+    ``window_bits`` > 0 sorts bits [0, window_bits) of every bucket in
+    place of its live-bit window (the sort only where every bucket's keys
+    agree above it), and ``ctas`` > 0 fixes the grid (the rows' count: one
+    CTA per row).
     """
+    leaves = tuple(leaves)
     if _build.on_cpu(buf):
-        ref.sort_segments_ref(buf, perm, starts, sizes, length)
+        ref.sort_segments_ref(buf, perm, starts, sizes, length, leaves)
         return
+    if length < 1 or length & (length - 1):
+        raise ValueError("row length must be a power of two")
+    if len(leaves) > MAX_LEAVES:
+        raise ValueError(f"at most {MAX_LEAVES} value leaves per launch")
+    for v in leaves:
+        if v.shape != buf.shape or v.element_size() not in (1, 2, 4, 8):
+            raise ValueError("value leaves must be 1-D, as long as the keys, "
+                             "with 1, 2, 4 or 8-byte elements")
     rows = starts.shape[0]
-    if rows == 0 or length < 2:
+    if rows == 0:
         return
-    _check_len(length, buf.element_size())
     starts = starts.to(torch.int32).contiguous()
     sizes = sizes.to(torch.int32).contiguous()
-    _build.check_cuda(buf, starts, sizes, *(() if perm is None else (perm,)))
+    _build.check_cuda(buf, starts, sizes, *leaves,
+                      *(() if perm is None else (perm,)))
+    nv = len(leaves)
+    ptrs = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in leaves])
+    widths = (ctypes.c_int * max(nv, 1))(*[v.element_size() for v in leaves])
     fn = _build.function("local_sort", "sort_segments_launch", _SEG_ARGS)
     with torch.cuda.device(buf.device):
         rc = fn(_build.ptr(buf), _P(None if perm is None else perm.data_ptr()),
                 _build.ptr(starts), _build.ptr(sizes), buf.element_size(),
-                rows, length, buf.shape[0], _build.stream_handle(buf.device))
+                rows, length, ptrs, widths, nv, window_bits, ctas,
+                _build.stream_handle(buf.device))
     _build.check("local_sort", rc)
     _build.COUNTS["local_sort"] += 1

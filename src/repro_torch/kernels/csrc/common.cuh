@@ -93,6 +93,31 @@ __device__ __forceinline__ int warp_rank_step(int* mine, unsigned d,
   return before + __popc(peers & lanemask_lt(lane));
 }
 
+// One warp step of a stable rank through per-warp digit bitmasks (the
+// fused pass's and the local sort's; CUB's onesweep does the same): the
+// lanes of one digit find each other through the warp's zeroed table of
+// digit bitmasks (one shared atomicOr each, then one read), read the
+// warp's running count of their digit, and their lowest lane bumps it and
+// clears the mask.  Returns each valid lane's rank among the warp's keys of
+// its digit so far: the earlier steps, then the lower lanes of this one.
+// Every lane of the warp calls it; `C` is the counter type.
+template <typename C>
+__device__ __forceinline__ int warp_mask_rank(C* mine, unsigned* masks,
+                                              unsigned d, bool valid,
+                                              int lane) {
+  if (valid) atomicOr(masks + d, 1u << lane);
+  __syncwarp();
+  const unsigned peers = valid ? masks[d] : 0u;
+  const int before = valid ? static_cast<int>(mine[d]) : 0;
+  __syncwarp();
+  if (valid && lane == __ffs(peers) - 1) {
+    mine[d] = static_cast<C>(before + __popc(peers));
+    masks[d] = 0;
+  }
+  __syncwarp();
+  return before + __popc(peers & lanemask_lt(lane));
+}
+
 // One 16-byte vector load seen as keys: 4 uint32, 2 uint64, 8 uint16 or 16
 // uint8.
 template <typename K>
@@ -100,6 +125,35 @@ union KeyVec {
   uint4 v;
   K k[16 / sizeof(K)];
 };
+
+// keys[0, count) of a row into shared memory by the whole block, 16 bytes
+// per load where the row's keys reach a 16-byte boundary (a scalar head and
+// tail around them).
+template <typename K>
+__device__ void load_row(const K* __restrict__ src, int count, K* sk) {
+  constexpr int V = 16 / sizeof(K);
+  const int head = min(
+      count, static_cast<int>(
+                 ((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) /
+                 sizeof(K)));
+  const int nvec = (count - head) / V;
+  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
+  if (threadIdx.x < head) sk[threadIdx.x] = src[threadIdx.x];
+  if (head == 0) {
+    uint4* vdst = reinterpret_cast<uint4*>(sk);
+    for (int v = threadIdx.x; v < nvec; v += blockDim.x)
+      vdst[v] = __ldcs(vsrc + v);
+  } else {
+    for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+      KeyVec<K> a;
+      a.v = __ldcs(vsrc + v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) sk[head + v * V + e] = a.k[e];
+    }
+  }
+  for (int i = head + nvec * V + threadIdx.x; i < count; i += blockDim.x)
+    sk[i] = src[i];
+}
 
 // Dispatch a key width in bytes to the unsigned key type.
 #define REPRO_DISPATCH_KEY(bytes, K, ...)                                     \
@@ -110,3 +164,15 @@ union KeyVec {
     case 8: { using K = unsigned long long; __VA_ARGS__; } break;             \
     default: return static_cast<int>(cudaErrorInvalidValue);                  \
   }
+
+// Asks L2 for the whole 16-byte units of bytes [begin, end).
+__device__ __forceinline__ void prefetch_l2(const void* base, long long begin,
+                                            long long end) {
+  begin = (begin + 15) / 16 * 16;
+  end = end / 16 * 16;
+  if (end > begin)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(
+                     static_cast<const unsigned char*>(base) + begin),
+                 "r"(static_cast<unsigned>(end - begin))
+                 : "memory");
+}

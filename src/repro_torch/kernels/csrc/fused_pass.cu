@@ -152,34 +152,6 @@ __device__ long long look_back(W* words, int g, int r, int d) {
 
 // ---- rows ----------------------------------------------------------------
 
-// keys[0, count) of a row into shared memory, 16 bytes per load where the
-// row's keys reach a 16-byte boundary.
-template <typename K>
-__device__ void load_row(const K* __restrict__ src, int count, K* sk) {
-  constexpr int V = 16 / sizeof(K);
-  const int head = min(
-      count, static_cast<int>(
-                 ((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) /
-                 sizeof(K)));
-  const int nvec = (count - head) / V;
-  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
-  if (threadIdx.x < head) sk[threadIdx.x] = src[threadIdx.x];
-  if (head == 0) {
-    uint4* vdst = reinterpret_cast<uint4*>(sk);
-    for (int v = threadIdx.x; v < nvec; v += blockDim.x)
-      vdst[v] = __ldcs(vsrc + v);
-  } else {
-    for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-      KeyVec<K> a;
-      a.v = __ldcs(vsrc + v);
-#pragma unroll
-      for (int e = 0; e < V; ++e) sk[head + v * V + e] = a.k[e];
-    }
-  }
-  for (int i = head + nvec * V + threadIdx.x; i < count; i += blockDim.x)
-    sk[i] = src[i];
-}
-
 template <typename T>
 __device__ void copy_row(const void* src, void* dst, long long off,
                          int count) {
@@ -314,18 +286,6 @@ struct PassArgs {
   W* words;
 };
 
-// Asks L2 for the whole 16-byte units of bytes [begin, end).
-__device__ __forceinline__ void prefetch_l2(const void* base, long long begin,
-                                            long long end) {
-  begin = (begin + 15) / 16 * 16;
-  end = end / 16 * 16;
-  if (end > begin)
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(
-                     static_cast<const unsigned char*>(base) + begin),
-                 "r"(static_cast<unsigned>(end - begin))
-                 : "memory");
-}
-
 // Copy-through row: key and every value leaf to their own index.
 template <typename K, typename W>
 __device__ void copy_through(const PassArgs<K, W>& a, long long off,
@@ -383,11 +343,8 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
   load_row<K>(a.src_keys + off, count, skeys);
   __syncthreads();
 
-  // 1. stable in-warp ranks and per-warp digit counts: per 32-key step the
-  //    lanes of one digit find each other through the warp's table of
-  //    digit bitmasks (a shared atomicOr each, then one read), read the
-  //    warp's running count, and their lowest lane bumps it and clears the
-  //    mask
+  // 1. stable in-warp ranks and per-warp digit counts, 32 keys a step
+  //    through the warp's table of digit bitmasks (warp_mask_rank)
   const int per = warp_slice_per(count, kPassWarps);
   const int wbeg = warp * per;
   const int wend = min(wbeg + per, count);
@@ -397,19 +354,8 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
     const int i = base + lane;
     const bool valid = i < wend;
     const unsigned d = valid ? digit_at(skeys[i], lo, width, true) : 0u;
-    if (valid) atomicOr(masks + d, 1u << lane);
-    __syncwarp();
-    const unsigned peers = valid ? masks[d] : 0u;
-    const int before = valid ? mine[d] : 0;
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) {
-      mine[d] = before + __popc(peers);
-      masks[d] = 0;
-    }
-    __syncwarp();
-    if (valid)
-      slot[i] = static_cast<unsigned short>(
-          before + __popc(peers & lanemask_lt(lane)));
+    const int rank = warp_mask_rank(mine, masks, d, valid, lane);
+    if (valid) slot[i] = static_cast<unsigned short>(rank);
   }
   __syncthreads();
 

@@ -3,16 +3,19 @@
   * ``local_sort_class_plan`` — power-of-two size classes (§4.2's local
                                 sort configurations), unchanged;
   * ``segmented_local_sort``  — one launch per class sorts the flagged
-                                buckets in place;
+                                buckets in place, value leaves moved in
+                                place with them;
   * ``apply_run_copies``      — the value gather through the permutation
-                                the local sort returns;
+                                the local sort writes in perm mode;
   * ``kernel_local_sort``     — (S, L) padded rows through the row network;
   * ``tile_histogram_pass``   — the standalone histogram sweep.
 
-The reference returned (src, dst) run copies over padded (rows, L) tables;
-here the kernel sorts keys in place and writes an O(n) ``perm`` (each slot's
-source position, identity outside the sorted buckets), which is the same
-copies in a layout that never materialises the padded tables.
+The reference returned (src, dst) run copies over padded (rows, L) tables
+and applied them to the keys and every value leaf; here the kernel sorts
+keys in place and moves the value leaves in place with them, which is the
+same copies without the padded tables or a gather.  ``perm`` mode writes an
+O(n) permutation instead (each slot's source position, identity outside the
+sorted buckets) for callers that gather themselves.
 
 ``static_nonzero`` stands in for ``jnp.nonzero(size=, fill_value=)``: a
 fixed-length result with no device-to-host read.
@@ -62,8 +65,11 @@ def local_sort_class_plan(n: int, row_len: int, s_max: int,
 
 def segmented_local_sort(keys: torch.Tensor, seg_start: torch.Tensor,
                          seg_size: torch.Tensor, seg_sortable: torch.Tensor,
-                         row_len: int, classes=None, perm=None) -> None:
-    """Sort every flagged bucket of ``keys`` in place by (key, position).
+                         row_len: int, classes=None, perm=None,
+                         leaves=()) -> None:
+    """Sort every flagged bucket of ``keys`` in place by (key, position),
+    each of ``leaves`` (per-key arrays as long as ``keys``) moved in place
+    with its keys.
 
     Buckets are binned by size class (``local_sort_class_plan``; ``None``
     keeps one class of width ``row_len`` with a row per segment slot) and
@@ -81,7 +87,7 @@ def segmented_local_sort(keys: torch.Tensor, seg_start: torch.Tensor,
         sel = torch.clamp(rsel, 0, s - 1).to(torch.int64)
         starts_c = torch.where(valid, seg_start[sel], 0)
         sizes_c = torch.where(valid, seg_size[sel], 0)
-        sort_segments_stable(keys, perm, starts_c, sizes_c, l)
+        sort_segments_stable(keys, perm, starts_c, sizes_c, l, leaves)
         prev_l = l
 
 

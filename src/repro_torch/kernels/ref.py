@@ -379,17 +379,22 @@ def assigned_histogram_ref(keys: torch.Tensor, tile_idx: torch.Tensor,
 
 
 def sort_segments_ref(buf: torch.Tensor, perm, starts: torch.Tensor,
-                      sizes: torch.Tensor, length: int) -> None:
+                      sizes: torch.Tensor, length: int, leaves=()) -> None:
     """Sort each bucket ``buf[start:start+size]`` (size <= length) in place
-    by (key, position); write source positions into ``perm`` if given."""
+    by (key, position), moving each of ``leaves`` (indexed along its first
+    dimension) in place with its keys; write source positions into
+    ``perm`` if given."""
     live = sizes > 0
     row, pos = _lanes(starts[live], sizes[live])
     keys = buf[pos]
     o1 = torch.sort(sortable(keys), stable=True).indices
-    order = o1[torch.sort(row[o1], stable=True).indices]
-    buf[pos] = keys[order]
+    src = pos[o1[torch.sort(row[o1], stable=True).indices]]
+    buf[pos] = buf[src]
+    for v in leaves:
+        bits = int_view(v)
+        bits[pos] = bits[src]
     if perm is not None:
-        perm[pos] = pos[order].to(perm.dtype)
+        perm[pos] = src.to(perm.dtype)
 
 
 def merge_rows_ref(hist: torch.Tensor, local_threshold: int,

@@ -554,3 +554,137 @@ def test_fused_kernel_refuses_rows_over_shared_memory(dev):
             base_excl=torch.zeros((2, 256), dtype=torch.int32, device=dev),
             nsid=torch.zeros(512, dtype=torch.int32, device=dev),
             kw=dict(kpb=65536, r=256, a_max=2, n=65536)), False)
+
+
+# ---- the redesigned local sort (per-bucket radix sort over the live bits,
+# value leaves moved in the kernel) ----------------------------------------
+
+_LEAF_DTYPES = (torch.int8, torch.int16, torch.float32, torch.int64,
+                torch.bool, torch.float64, torch.int32, torch.uint8)
+
+
+def _bucket_keys(rng, kind, size, key_bytes):
+    """One bucket's unsigned keys: random, or an edge case."""
+    u = _KEY_DTYPES[key_bytes]
+    top = u(1) << u(8 * key_bytes - 1)
+    ones = np.iinfo(u).max
+    if kind == "random":
+        return rng.integers(0, ones, size, dtype=u, endpoint=True)
+    if kind == "ties":
+        return rng.integers(0, 5, size, dtype=u)
+    if kind == "all_equal":
+        return np.full(size, ones // 3, u)
+    if kind == "bit0":
+        return (u(ones // 5) & ~u(1)) | rng.integers(0, 2, size, dtype=u)
+    if kind == "top_bit":
+        return np.where(rng.random(size) < 0.5, top, u(0)) | u(3)
+    x = rng.integers(0, 40, size, dtype=u)               # all-ones keys
+    x[rng.random(size) < 0.2] = ones
+    return x
+
+
+def _segments_case(dev, length, key_bytes, seed):
+    """A key buffer whose buckets of one class sit at unaligned starts
+    between unflagged gaps, the class's (starts, sizes) rows (a size-0 row
+    mid-table and the trailing ones the planner leaves), and 8 mixed
+    leaves."""
+    rng = np.random.default_rng(seed)
+    low = 1 if length <= 32 else length // 2 + 1
+    kinds = ["random", "ties", "all_equal", "bit0", "top_bit", "ones"]
+    sizes = [int(rng.integers(low, length + 1)) for _ in kinds]
+    sizes += [length, low, 1, int(rng.integers(low, length + 1))]
+    kinds += ["random", "ones", "random", "ties"]
+    parts, starts, at = [], [], 0
+    for kind, size in zip(kinds, sizes):
+        gap = int(rng.integers(1, 40))
+        parts.append(_bucket_keys(rng, "random", gap, key_bytes))
+        at += gap
+        starts.append(at)
+        parts.append(_bucket_keys(rng, kind, size, key_bytes))
+        at += size
+    keys = _carrier(np.concatenate(parts)).to(dev)
+    starts.insert(3, 0)
+    sizes.insert(3, 0)
+    starts += [0] * 5
+    sizes += [0] * 5
+    leaves = tuple(torch.from_numpy(rng.integers(-2**62, 2**62, keys.numel()))
+                   .to(dt).to(dev) for dt in _LEAF_DTYPES)
+    table = [torch.tensor(t, dtype=torch.int32, device=dev)
+             for t in (starts, sizes)]
+    return keys, leaves, table
+
+
+def _run_segments(fn, keys, leaves, table, length, perm):
+    k = keys.clone()
+    v = tuple(x.clone() for x in leaves)
+    p = (torch.arange(k.numel(), dtype=torch.int32, device=k.device)
+         if perm else None)
+    fn(k, p, *table, length, v)
+    return [k, *v] + ([p] if perm else [])
+
+
+@pytest.mark.parametrize("length", [32 << i for i in range(10)])
+@pytest.mark.parametrize("key_bytes", [1, 2, 4, 8])
+@pytest.mark.parametrize("perm", [False, True], ids=["leaves", "perm"])
+def test_local_sort_kernel_equals_plain(dev, length, key_bytes, perm):
+    from repro_torch.kernels import COUNTS, bitonic, ref, reset_counts
+    keys, leaves, table = _segments_case(dev, length, key_bytes,
+                                         length + key_bytes)
+    reset_counts()
+    got = _run_segments(bitonic.sort_segments_stable, keys, leaves, table,
+                        length, perm)
+    torch.cuda.synchronize()
+    assert COUNTS["local_sort"] == 1
+    want = _run_segments(ref.sort_segments_ref, keys, leaves, table, length,
+                         perm)
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+
+
+@pytest.mark.parametrize("length", [32, 8192])
+def test_local_sort_kernel_empty_class_changes_nothing(dev, length):
+    from repro_torch.kernels import COUNTS, bitonic, reset_counts
+    keys, leaves, _ = _segments_case(dev, length, 4, 3)
+    zeros = torch.zeros(200000, dtype=torch.int32, device=dev)
+    reset_counts()
+    got = _run_segments(bitonic.sort_segments_stable, keys, leaves,
+                        (zeros, zeros), length, True)
+    torch.cuda.synchronize()
+    assert COUNTS["local_sort"] == 1
+    assert _bits_equal(got[0], keys)
+    assert all(_bits_equal(a, b) for a, b in zip(got[1:-1], leaves))
+    assert torch.equal(got[-1], torch.arange(keys.numel(), dtype=torch.int32,
+                                             device=dev))
+
+
+def test_local_sort_kernel_refuses_a_class_over_shared_memory(dev):
+    from repro_torch.kernels import bitonic
+    keys = torch.zeros(1 << 15, dtype=torch.int64, device=dev)
+    table = [torch.tensor([0], dtype=torch.int32, device=dev),
+             torch.tensor([1 << 15], dtype=torch.int32, device=dev)]
+    with pytest.raises(RuntimeError, match="local_sort"):
+        bitonic.sort_segments_stable(keys, None, *table, 1 << 15)
+
+
+def test_hybrid_sort_main_path_moves_leaves_in_the_kernel(dev):
+    """2^28 uint32 keys with two value leaves: the sort equals
+    torch.sort(stable=True) and its indices, and the finish runs the
+    local-sort kernel."""
+    from repro_torch import hybrid_sort
+    from repro_torch.core import bijection
+    from repro_torch.kernels import COUNTS, reset_counts
+    n = 1 << 28
+    gen = torch.Generator(device=dev).manual_seed(28)
+    keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    reset_counts()
+    out_k, (out_i, out_w) = hybrid_sort(keys.view(torch.uint32),
+                                        (idx, idx.to(torch.int64) * 3))
+    torch.cuda.synchronize()
+    assert COUNTS["local_sort"] >= 1
+    want = torch.sort(bijection.sortable(keys), stable=True)
+    assert torch.equal(bijection.sortable(out_k.view(torch.int32)),
+                       want.values)
+    assert torch.equal(out_i.to(torch.int64), want.indices)
+    assert torch.equal(out_w, want.indices * 3)

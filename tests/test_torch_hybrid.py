@@ -180,10 +180,10 @@ def test_kernel_engine_census_on_cpu(rng, monkeypatch):
     classes = thybrid.local_sort_classes(n, pcfg)
     sorts = []
     monkeypatch.setattr(bitonic, "sort_segments_stable",
-                        lambda *a: sorts.append(a[-1]))
+                        lambda *a: sorts.append(a[4]))
     from repro_torch.kernels import ops
     monkeypatch.setattr(ops, "sort_segments_stable",
-                        lambda *a: sorts.append(a[-1]))
+                        lambda *a: sorts.append(a[4]))
     hybrid_sort(entropy_keys(rng, n, 0), cfg=pcfg, engine="kernel",
                 device="cpu")
     assert sorts == [length for length, _ in classes]
