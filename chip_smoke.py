@@ -22,7 +22,10 @@ just after:
   writing positions, beside ``torch.sort(stable=True)`` of the same buffer
   with the value gather), every sort is checked byte for byte against
   ``torch.sort(stable=True)`` of the ordered-bits carrier, the launch census
-  is checked and one sort is profiled;
+  is checked and one sort is profiled; then the same 2^28 KV sort at
+  Table 3's (4,0) config with d = 9 (r = 512): its histogram and fused
+  passes held to their plain versions at r = 512, the counted sort byte
+  for byte against ``torch.sort(stable=True)``, its census checked;
 * the library surface, each public entry point of
   ``repro_torch.kernels`` whose TPU kernel no sort path calls
   (``bitonic_sort_rows``, ``bitonic_sort_rows_kv``, ``tile_multisplit``,
@@ -33,15 +36,18 @@ just after:
   [0, 1000)), (38 837, 6912) uint32 tiles with int32 values, 43 692
   assigned slots of which 4 855 padding; each kernel is then held to its
   plain version (exact) and timed beside ``torch.sort(dim=1)`` for the
-  rows; the row sort over int32, float32 with ±0 / NaN / ±inf, int64,
-  float64 and uint16 keys and the KV row sort at L = 16384 are checked at
-  2^20 keys;
+  rows (whose bound is the larger of the bytes and the network's integer
+  instructions at the INT32 rate); the row sort over int32, float32 with
+  ±0 / NaN / ±inf, int64, float64, uint16, the five float8 formats and
+  int4 / uint4 keys (with their special encodings, also with values) and
+  the KV row sort at L = 16384 are checked at 2^20 keys;
 * the out-of-core path, ``repro_torch.oocsort``, on 2^30 uint32 keys with an
   int32 index value (8 GiB of 8-byte records) in chunks of 2^28, kway 4,
   tile 4096 (4 runs, one merge round): ``merge_check`` holds the merge
   kernel to its plain version on the tables and buffers of that round
   (taken from a profiled run, which also gives the chunk phase's share of
-  upload/kernel overlap); ``ooc`` (device-resident) and ``ooc_spill``
+  upload/kernel overlap), and again on the same round cut into tiles
+  of 256, ``oocsort``'s default, each timed; ``ooc`` (device-resident) and ``ooc_spill``
   (host spill under a 2^34-byte budget: 5 runs, 2 spilled rounds) are timed
   on the host clock and checked against ``torch.sort(stable=True)`` on the
   card, with merge launches equal to the rounds or strips.  The host's RAM,
@@ -78,6 +84,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
+#: INT32 lanes per SM per clock (Hopper architecture white paper) and the
+#: H100 SXM's maximum boost clock (data sheet): the integer roofline
+INT32_LANES_PER_SM = 64
+BOOST_HZ = 1.98e9
 
 
 def emit(obj) -> None:
@@ -95,6 +105,30 @@ def need(cond, what) -> None:
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def int_ops_ms(torch, ops: float) -> float:
+    """Least time for ``ops`` INT32 instructions (per thread) on the card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ops / (sms * INT32_LANES_PER_SM * BOOST_HZ) * 1e3
+
+
+def network_bound(torch, res, rows, length, ops_per_exchange):
+    """The row network's bound: the larger of its byte bound (already in
+    ``res``) and its compare-exchanges times ``ops_per_exchange`` integer
+    instructions (a min and a max for keys, a compare and four selects
+    with values) at the INT32 rate."""
+    lg = length.bit_length() - 1
+    exchanges = rows * length // 2 * lg * (lg + 1) // 2
+    ops = int_ops_ms(torch, exchanges * ops_per_exchange)
+    res.update(byte_bound_ms=res["bound_ms"], ops_bound_ms=ops,
+               exchanges=exchanges, ops_per_exchange=ops_per_exchange,
+               bound_by="operations" if ops > res["bound_ms"] else "bytes",
+               bound_ms=max(ops, res["bound_ms"]))
+    emit({"phase": "network_bound", "shape": [rows, length], **{
+        k: res[k] for k in ("exchanges", "ops_per_exchange", "byte_bound_ms",
+                            "ops_bound_ms", "bound_ms", "bound_by")}})
+    return res
 
 
 def cuda_ms(torch, fn, reps, setup=None) -> float:
@@ -169,8 +203,9 @@ def build():
 # capture: the kernels' arguments on a real run of the main path
 # --------------------------------------------------------------------------
 
-def capture(torch, keys, values, passes=2):
-    """Run ``hybrid_sort`` once, recording clones of the arguments of its
+def capture(torch, keys, values, passes=2, cfg=None):
+    """Run ``hybrid_sort`` once (at ``cfg``, else the default config),
+    recording clones of the arguments of its
     first ``passes`` fused passes, of its merge_rows calls and of its
     local-sort launches (the key buffer and value leaves before the first
     class, then the class tables).  The recording run is not the counted
@@ -210,7 +245,7 @@ def capture(torch, keys, values, passes=2):
     plan.merge_rows = merge_hook
     ops.sort_segments_stable = seg_hook
     try:
-        hybrid_sort(keys, values)
+        hybrid_sort(keys, values, cfg=cfg)
     finally:
         fused.fused_counting_pass = orig_pass
         plan.merge_rows = orig_merge
@@ -650,6 +685,8 @@ def library_phase(torch, np, log2n, reps, dev):
         ref.bitonic_rows_ref, (dup, vals), reps, 2 * n * 8, keys_in="[0,1000)",
         shape=list(keys.shape))
     out["bitonic_rows_kv"]["dup_ms"] = dup_res["ms"]
+    network_bound(torch, out["bitonic_rows"], *keys.shape, 2)
+    network_bound(torch, out["bitonic_rows_kv"], *keys.shape, 5)
     del lib_keys
     tk, tv = inp["tile_keys"], inp["tile_vals"]
     t, kpb = tk.shape
@@ -680,8 +717,10 @@ def library_phase(torch, np, log2n, reps, dev):
 
 def library_dtypes(torch, np, dev):
     """Equality-only checks at 2^20 keys: the row sort over other key
-    dtypes (floats with ±0, NaN and ±inf rows) and the KV row sort at
-    L = 16384, the (4,0) config's widest local-sort class (∂̂ 9216)."""
+    dtypes (floats with ±0, NaN and ±inf rows; the float8 formats and the
+    4-bit integers with their special encodings, also with values) and the
+    KV row sort at L = 16384, the (4,0) config's widest local-sort class
+    (∂̂ 9216)."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
     rng = np.random.default_rng(1615)
@@ -705,6 +744,24 @@ def library_dtypes(torch, np, dev):
         "float64": put(rng.standard_normal(shape)),
         "uint16": put(rng.integers(0, 2**16, shape, dtype=np.uint16)),
     }
+    # one-byte kinds: random bytes with a third of the lanes drawn from
+    # each format's NaNs, ±0, infinities and subnormals (and 4-bit values
+    # with high-nibble bits), keys alone and with int32 values
+    specials = np.array([0x00, 0x80, 0x7F, 0xFF, 0x7E, 0xFE, 0x7C, 0xFC,
+                         0x7D, 0x01, 0x81, 0x03, 0x83, 0x18, 0xF3], np.uint8)
+    byte_vals = torch.arange(shape[0] * shape[1], dtype=torch.int32,
+                             device=dev).reshape(shape)
+    byte_kinds = ("float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+                  "float8_e5m2fnuz", "float8_e8m0fnu", "int4", "uint4")
+    for name in byte_kinds:
+        bits = rng.integers(0, 256, shape, dtype=np.uint8)
+        at = rng.random(shape) < 0.33
+        bits[at] = rng.choice(specials, int(at.sum()))
+        keys = put(bits).view(getattr(torch, name))
+        err = _bits_err(torch, K.bitonic_sort_rows_kv(keys, byte_vals),
+                        ref.bitonic_rows_ref(keys, byte_vals))
+        need(err == 0, f"bitonic_rows_kv ({name}) != plain version")
+        cases[name] = keys
     for label, keys in cases.items():
         err = _bits_err(torch, K.bitonic_sort_rows(keys),
                         ref.bitonic_rows_ref(keys))
@@ -716,7 +773,8 @@ def library_dtypes(torch, np, dev):
                     ref.bitonic_rows_ref(keys, vals))
     need(err == 0, "bitonic_rows_kv (L = 16384) != plain version")
     emit({"phase": "library_dtypes", "keys": 1 << 20,
-          "rows": sorted(cases), "kv_row_len": 16384, "equal": True})
+          "rows": sorted(cases), "kv_rows": list(byte_kinds),
+          "kv_row_len": 16384, "equal": True})
     torch.cuda.empty_cache()
 
 
@@ -742,7 +800,7 @@ def same_bits(torch, a, b) -> bool:
                             bijection.to_ordered_bits(b)))
 
 
-def main_case(torch, label, keys, with_values, reps):
+def main_case(torch, label, keys, with_values, reps, cfg=None):
     from repro_torch import hybrid_sort
     from repro_torch.core import bijection, hybrid, model
     from repro_torch.core.ranks import resolve_engine
@@ -753,15 +811,16 @@ def main_case(torch, label, keys, with_values, reps):
     values = (torch.arange(n, dtype=torch.int32, device=keys.device)
               if with_values else None)
     kb = keys.element_size()
-    cfg = model.default_config(kb)
+    cfg = cfg or model.default_config(kb)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     reset_counts()
     if with_values:
-        out_k, out_v, stats = hybrid_sort(keys, values, return_stats=True)
+        out_k, out_v, stats = hybrid_sort(keys, values, cfg=cfg,
+                                          return_stats=True)
     else:
-        out_k, stats = hybrid_sort(keys, return_stats=True)
+        out_k, stats = hybrid_sort(keys, cfg=cfg, return_stats=True)
     torch.cuda.synchronize()
     counts = dict(COUNTS)
     peak = torch.cuda.max_memory_allocated() - base_mem
@@ -785,10 +844,10 @@ def main_case(torch, label, keys, with_values, reps):
     lib_keys = (keys.view(bijection.carrier_dtype(keys.dtype))
                 if keys.dtype in (torch.uint32, torch.uint64) else keys)
     if with_values:
-        ms = cuda_ms(torch, lambda: hybrid_sort(keys, values), reps)
+        ms = cuda_ms(torch, lambda: hybrid_sort(keys, values, cfg=cfg), reps)
         lib = cuda_ms(torch, lambda: torch.sort(lib_keys, stable=True), reps)
     else:
-        ms = cuda_ms(torch, lambda: hybrid_sort(keys), reps)
+        ms = cuda_ms(torch, lambda: hybrid_sort(keys, cfg=cfg), reps)
         lib = cuda_ms(torch, lambda: torch.sort(lib_keys), reps)
     p = stats.counting_passes
     n_pad = fused.pad_length(n, cfg.kpb)
@@ -798,6 +857,7 @@ def main_case(torch, label, keys, with_values, reps):
     res = {"phase": "main_path", "case": label, "n": n,
            "dtype": str(keys.dtype).replace("torch.", ""),
            "values": with_values, "engine": "kernel", "equal": True,
+           "d": cfg.d, "kpb": cfg.kpb,
            "stats": stats._asdict(), "launches": counts,
            "local_sort_classes": classes, "ms": ms, "torch_sort_ms": lib,
            "byte_model": model_bytes, "byte_model_bound_ms":
@@ -840,6 +900,63 @@ def profile_case(torch, keys, with_values):
           "device_idle_share": (1 - busy_ms / wall_ms) if rows else None,
           "top": [{"name": name[:80], "calls": count, "device_ms": ms}
                   for ms, count, name in rows[:15]]})
+
+
+#: Table 3's (4,0) config with 9-bit digits (r = 512)
+D9 = dict(d=9, kpb=6912, local_threshold=9216, merge_threshold=3000)
+
+
+def d9_phase(torch, np, log2n, reps, dev):
+    """The main path at d = 9 on 2^log2n uint32 keys with an int32 index:
+    the prologue histogram at r = 512 (total and rows) and every fused pass
+    of the sort held to their plain versions, then the counted sort, byte
+    for byte against ``torch.sort(stable=True)``, with its census."""
+    from repro_torch.core import bijection, hybrid, plan
+    from repro_torch.core.model import SortConfig
+    from repro_torch.kernels import fused, histogram, ref
+    cfg = SortConfig(**D9)
+    n = 1 << log2n
+    keys = torch.from_numpy(np.random.default_rng(2017).integers(
+        0, 2**32, n, dtype=np.uint32)).to(dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    (ck, _), _ = fused.make_ping_pong(bijection.to_ordered_bits(keys), (),
+                                      cfg.kpb)
+    lo, width = plan.digit_window(0, 32, cfg.d)[:2]
+    tiles = ck.reshape(-1, cfg.kpb)
+    err = max_abs_err(torch, [
+        (histogram.digit_total(ck, n, lo, width),
+         ref.radix_histogram_ref(ck[:n].reshape(1, -1), lo, width)[0]),
+        (histogram.radix_histogram(tiles, lo, width),
+         ref.radix_histogram_ref(tiles, lo, width))])
+    need(err == 0, "histogram (d = 9) != plain")
+    hist_ms = cuda_ms(torch, lambda: histogram.digit_total(ck, n, lo, width),
+                      reps)
+    del ck, tiles
+    emit({"phase": "kernel_check", "kernel": "histogram", "keys": "d9",
+          "n": n, "width": width, "equal": True, "ms": hist_ms,
+          "bound_ms": bound_ms(n * 4 + (1 << width) * 4),
+          "max_abs_err": err})
+    rec = capture(torch, keys, vals, passes=8, cfg=cfg)
+    need(rec["passes"] and all(r["kw"]["r"] == 512 for r in rec["passes"]),
+         "d = 9: the fused passes did not run at r = 512")
+    fused_res = [check_fused(torch, r, n, f"d9_kv_pass{i}", reps)
+                 for i, r in enumerate(rec["passes"])]
+    del rec
+    torch.cuda.empty_cache()
+    res = main_case(torch, "uint32_uniform_kv_d9", keys, True, reps,
+                    cfg=cfg)
+    launches = res["launches"]
+    classes = len(hybrid.local_sort_classes(n, cfg))
+    passes = res["stats"]["counting_passes"]
+    need(launches["histogram"] + launches["fused_pass"] ==
+         1 + passes and launches["local_sort"] <= classes,
+         f"d = 9: census {launches} against 1 histogram, {passes} passes "
+         f"and at most {classes} local sorts")
+    emit({"phase": "d9_census", "histogram": launches["histogram"],
+          "fused_pass": launches["fused_pass"], "passes": passes,
+          "local_sort": launches["local_sort"], "classes": classes,
+          "static_census": 2 + classes})
+    return res, fused_res
 
 
 def make_cases(torch, np, log2n, dev):
@@ -1078,6 +1195,23 @@ def merge_check(torch, np, keys, vals, chunk, reps):
         ck, cv, *alt, *tables, **kw), 1)
     del alt, got_k, got_v
     torch.cuda.empty_cache()
+    # the same round at oocsort's default tile of 256 (4 M output tiles):
+    # equal to the plain version, then timed
+    small = merge.merge_path_partition(ck, rec["lens"], kway, 256)
+    kw256 = dict(kway=kway, tpb=256, n=n)
+    got_k, got_v = merge.kway_merge_round(ck, cv, *fresh(), *small, **kw256)
+    want_k, want_v = ref.kway_merge_round_ref(ck, cv, *fresh(), *small,
+                                              **kw256)
+    torch.cuda.synchronize()
+    err256 = max_abs_err(torch, [(got_k[:n], want_k[:n])] +
+                         [(a[:n], b[:n]) for a, b in zip(got_v, want_v)])
+    need(err256 == 0, "merge kernel (tile 256) != plain version")
+    del got_k, got_v, want_k, want_v
+    alt = fresh()
+    ms256 = cuda_ms(torch, lambda: merge.kway_merge_round(
+        ck, cv, *alt, *small, **kw256), reps)
+    del alt
+    torch.cuda.empty_cache()
     srt = bijection.sortable(ck[:n])
     lib = cuda_ms(torch, lambda: torch.sort(srt, stable=True), reps)
     del srt
@@ -1090,7 +1224,12 @@ def merge_check(torch, np, keys, vals, chunk, reps):
            "max_abs_err": err, "ms": ms, "plain_ms": plain,
            "torch_sort_stable_ms": lib,
            "bound_bytes": 2 * n_pad * (kb + vb) + table_bytes,
-           "bound_ms": bound_ms(2 * n_pad * (kb + vb) + table_bytes)}
+           "bound_ms": bound_ms(2 * n_pad * (kb + vb) + table_bytes),
+           "tile256": {"tiles": small[0].numel(), "equal": True,
+                       "max_abs_err": err256, "ms": ms256,
+                       "bound_ms": bound_ms(2 * n_pad * (kb + vb) + sum(
+                           t.numel() * 4 for t in small))}}
+    del small
     emit(res)
     del ck, cv, tables, rec
     torch.cuda.empty_cache()
@@ -1295,6 +1434,13 @@ def run(args) -> int:
          f"a kernel of the main path was not launched: {launches}")
     torch.cuda.empty_cache()
 
+    # the main path at d = 9 (r = 512; its own counted run)
+    d9, _ = d9_phase(torch, np, args.log2n, args.reps, dev)
+    need(all(d9["launches"][k] > 0 for k in ("histogram", "fused_pass",
+                                             "local_sort", "merge_rows")),
+         f"a kernel of the d = 9 path was not launched: {d9['launches']}")
+    torch.cuda.empty_cache()
+
     # phase 5: the out-of-core path (its own counted runs)
     kmerge_res, ooc_launches = ooc_phases(torch, np, args.log2n, args.reps)
     need(all(ooc_launches[k] > 0 for k in ("histogram", "fused_pass",
@@ -1334,11 +1480,12 @@ def run(args) -> int:
         kernels.append(dict(
             name=name, route="cuda", source=src + cu,
             replaces="src/repro/kernels/" + line, launches=lib_counts[name],
-            **_k(lib_res[name]), bound_by="bytes",
+            **_k(lib_res[name]),
+            bound_by=lib_res[name].get("bound_by", "bytes"),
             library_ms=lib_res[name]["library_ms"]))
     emit({"phase": "summary", "main_path": "uint32_uniform_kv",
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],
-          "torch_sort_ms": main["torch_sort_ms"]})
+          "torch_sort_ms": main["torch_sort_ms"], "d9_sort_ms": d9["ms"]})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,7 +34,7 @@ def assigned_histogram(keys: torch.Tensor, tile_idx: torch.Tensor,
     if _build.on_cpu(keys):
         return ref.assigned_histogram_ref(keys, tile_idx, valid, shift,
                                           width)
-    check_width(width)
+    check_width(width, 8)
     b, logical = ref.signed_bits(keys.contiguous())
     t, kpb = b.shape
     g = tile_idx.shape[0]

@@ -16,10 +16,11 @@ The library's min/max network launches ``csrc/bitonic_rows.cu``:
   * ``bitonic_sort_rows_kv`` — the same network moving values by the
     reference's move mask (not stable under duplicate keys).
 
-These take the key's own dtype: bool, (u)int8/16/32/64, float16, bfloat16,
-float32 and float64, with XLA's min/max semantics for floats (see
-``ref.bitonic_rows_ref``).  On CPU tensors every entry runs its plain
-version in ``ref.py``.
+These take the key's own dtype: bool, (u)int8/16/32/64, (u)int4 (one per
+byte), float16, bfloat16, float32, float64 and the float8 formats
+e4m3fn, e5m2, e4m3fnuz, e5m2fnuz and e8m0fnu, with XLA's min/max
+semantics for floats (see ``ref.bitonic_rows_ref``).  On CPU tensors
+every entry runs its plain version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -38,7 +39,9 @@ _NET_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 #: the opt-in shared memory one CTA may use on Hopper
 SMEM_LIMIT = 232448
 #: ref's compare kinds -> csrc/bitonic_rows.cu's RowKind
-_NET_KIND = {"u": 0, "s": 1, "f16": 2, "bf16": 3, "f32": 4, "f64": 5}
+_NET_KIND = {"u": 0, "s": 1, "f16": 2, "bf16": 3, "f32": 4, "f64": 5,
+             "e4m3fn": 6, "e5m2": 7, "e4m3fnuz": 8, "e5m2fnuz": 9,
+             "e8m0fnu": 10, "i4": 11, "u4": 12}
 
 
 def _check_len(length: int, key_bytes: int, lane_bytes: int = 4) -> None:
@@ -60,7 +63,15 @@ def _network(keys: torch.Tensor, vals):
         return ref.bitonic_rows_ref(keys, vals)
     s, length = keys.shape
     val_bytes = 0 if vals is None else vals.element_size()
-    _check_len(length, keys.element_size(), val_bytes)
+    if length & (length - 1):
+        raise ValueError("row length must be a power of two")
+    smem = _build.function("bitonic_rows", "bitonic_rows_smem", [_I, _I, _I])
+    smem.restype = ctypes.c_longlong
+    need = smem(length, keys.element_size(), val_bytes)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"a row of {length} keys needs {need} bytes of "
+                         f"shared memory, over the {SMEM_LIMIT} a CTA can "
+                         f"hold")
     keys = keys.contiguous()
     vals = None if vals is None else vals.contiguous()
     _build.check_cuda(keys, *(() if vals is None else (vals,)))
@@ -68,6 +79,8 @@ def _network(keys: torch.Tensor, vals):
     out_v = None if vals is None else torch.empty_like(vals)
     if s == 0 or length < 2:
         out_k.copy_(keys)
+        if kind in ref.NIBBLE_KINDS:     # a 4-bit key is its low nibble
+            out_k.view(torch.uint8).bitwise_and_(0xF)
         if vals is not None:
             out_v.copy_(vals)
     else:

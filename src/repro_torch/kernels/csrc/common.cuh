@@ -20,7 +20,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // The digit (key >> lo) & (2^width - 1) with the key dtype's own shift:
 // logical for an unsigned key, arithmetic for a signed one (the bits read
 // as the unsigned K either way).  A shift past the top bit gives 0 or the
-// sign fill, as XLA's shifts do.  width <= 8.
+// sign fill, as XLA's shifts do.  width <= 16.
 template <typename K>
 __device__ __forceinline__ unsigned digit_at(K key, int lo, int width,
                                              bool logical) {

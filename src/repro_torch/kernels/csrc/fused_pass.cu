@@ -17,7 +17,7 @@
 //   3. the row publishes its block histogram and obtains its in-segment
 //      carry by decoupled look-back over the earlier rows of its region;
 //   4. it stages the row digit-major in shared memory (each key's staged
-//      slot kept as uint16);
+//      slot kept as uint16, its digit as uint8, or uint16 past r = 256);
 //   5. it writes the keys out in runs: staged slot j of digit d goes to
 //      base_excl[seg, d] + carry[d] + (j - block_excl[d]), so consecutive
 //      threads write consecutive addresses of a digit run (the paper's §4.4
@@ -64,13 +64,17 @@
 // keys of one (digit, next digit) bin, so each key costs a global atomic
 // per histogram.  Shared memory (PassLayout; a shape over the card's
 // opt-in limit is refused at launch): keys twice (index order, staged), or
-// one leaf, + kpb uint16 slots
-// + kpb digits + two (16, r) int tables (the rank's per-warp counts and
-// digit bitmasks, then the long runs' next-digit tables) + 4 r + 16 ints;
-// at kpb 6912 with 4-byte keys and values 110.3 KB (two CTAs of 512
-// threads per SM), with 8-byte keys and 8-byte values 164.3 KB (one).
-// Supports d <= 8 (r <= 256), kpb <= 2^16 within 227 KB, and up to
-// kMaxLeaves value leaves of 1, 2, 4 or 8 bytes.
+// one leaf, + kpb uint16 slots + kpb staged digits (one byte each up to
+// r = 256, two up to 512: the digit type is a template parameter, so the
+// 8-bit path keeps its layout) + two (16, r) int tables (the rank's
+// per-warp counts and digit bitmasks, then the long runs' next-digit
+// tables) + 4 r + 16 ints; at kpb 6912 with 4-byte keys and values
+// 110.3 KB at r = 256 (two CTAs of 512 threads per SM) and 155 KB at
+// r = 512 (one), with 8-byte keys and 8-byte values 164.3 KB and 210 KB.
+// Supports d <= 9 (r <= 512: the look-back's thread d still follows digit
+// d), kpb <= 2^16 within 227 KB, and up to kMaxLeaves value leaves of 1, 2,
+// 4 or 8 bytes.  Wider digits need another in-tile rank: the two (16, r)
+// tables alone are 128 KB at r = 1024, and the look-back words rows * r.
 #include <cuda/atomic>
 
 #include "common.cuh"
@@ -162,11 +166,11 @@ __device__ void copy_row(const void* src, void* dst, long long off,
 
 // One value leaf through the staging buffer: row element i to staged slot
 // slot[i], then staged slot j to dst[delta[sdig[j]] + j].
-template <typename T>
+template <typename T, typename D>
 __device__ void move_leaf(const void* src, void* dst, long long off,
                           int count, void* stage,
-                          const unsigned short* slot,
-                          const unsigned char* sdig, const int* delta) {
+                          const unsigned short* slot, const D* sdig,
+                          const int* delta) {
   const T* s = static_cast<const T*>(src) + off;
   T* st = static_cast<T*>(stage);
   __syncthreads();  // the stage buffer's last readers are done
@@ -234,7 +238,7 @@ __device__ __forceinline__ void staged_count(int* hist, int* table, int sid,
   const bool live = sid < a_max;
   const unsigned want = __ballot_sync(kFullMask, live);
   if (!live) return;
-  const unsigned peers = __match_any_sync(want, d << 8 | nd);
+  const unsigned peers = __match_any_sync(want, d << 16 | nd);
   if (lane == __ffs(peers) - 1) {
     if (rid >= 0)
       atomicAdd(table + rid * r + nd, __popc(peers));
@@ -247,6 +251,11 @@ __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) / 16 * 16;
 }
 
+// The staged digits' type: one byte up to r = 256, two up to r = 512.
+__host__ __device__ constexpr int digit_bytes(int r) {
+  return r > 256 ? 2 : 1;
+}
+
 // Byte offsets of the shared-memory layout.
 struct PassLayout {
   size_t slot, sdig, wcnt, nh2, small, total;
@@ -257,7 +266,7 @@ struct PassLayout {
     if (k * leaf_bytes > region) region = k * leaf_bytes;
     slot = align16(region);
     sdig = slot + 2 * k;
-    wcnt = align16(sdig + k);
+    wcnt = align16(sdig + k * digit_bytes(r));
     nh2 = wcnt + sizeof(int) * kPassWarps * r;
     small = nh2 + sizeof(int) * kPassWarps * r;
     total = small + sizeof(int) * (4 * r + kMaxLongRuns);
@@ -303,8 +312,9 @@ __device__ void copy_through(const PassArgs<K, W>& a, long long off,
   }
 }
 
-// Partition row g (active, count > 0) of segment blk_seg[g].
-template <typename K, typename W>
+// Partition row g (active, count > 0) of segment blk_seg[g]; D holds a
+// staged digit.
+template <typename K, typename W, typename D>
 __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
                               int count, unsigned char* smem) {
   using L = Look<W>;
@@ -314,7 +324,7 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
   K* staged = skeys + kpb;                                 // (kpb,) digit-major
   void* vstage = smem;                                     // (kpb,) one leaf
   auto* slot = reinterpret_cast<unsigned short*>(smem + lay.slot);
-  unsigned char* sdig = smem + lay.sdig;                   // staged digits
+  D* sdig = reinterpret_cast<D*>(smem + lay.sdig);        // staged digits
   int* wcnt = reinterpret_cast<int*>(smem + lay.wcnt);     // (warps, r)
   int* nh1 = wcnt;                // (long runs, r), after staging
   int* nh2 = reinterpret_cast<int*>(smem + lay.nh2);      // (warps, r): digit
@@ -393,7 +403,7 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
     const int s = bexcl[d] + mine[d] + slot[i];
     slot[i] = static_cast<unsigned short>(s);
     staged[s] = key;
-    sdig[s] = static_cast<unsigned char>(d);
+    sdig[s] = static_cast<D>(d);
   }
   __syncthreads();
   const int table_ints = s_nlong * r;
@@ -442,14 +452,14 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
     const void* src = a.leaves.src[v];
     void* dst = a.leaves.dst[v];
     switch (a.leaves.bytes[v]) {
-      case 1: move_leaf<uint8_t>(src, dst, off, count, vstage, slot, sdig,
-                                 delta); break;
-      case 2: move_leaf<uint16_t>(src, dst, off, count, vstage, slot, sdig,
-                                  delta); break;
-      case 4: move_leaf<uint32_t>(src, dst, off, count, vstage, slot, sdig,
-                                  delta); break;
-      default: move_leaf<unsigned long long>(src, dst, off, count, vstage,
-                                             slot, sdig, delta);
+      case 1: move_leaf<uint8_t, D>(src, dst, off, count, vstage, slot,
+                                    sdig, delta); break;
+      case 2: move_leaf<uint16_t, D>(src, dst, off, count, vstage, slot,
+                                     sdig, delta); break;
+      case 4: move_leaf<uint32_t, D>(src, dst, off, count, vstage, slot,
+                                     sdig, delta); break;
+      default: move_leaf<unsigned long long, D>(src, dst, off, count,
+                                                vstage, slot, sdig, delta);
     }
   }
 }
@@ -475,7 +485,7 @@ __device__ bool live_from(const int* blk_count, int g, int rows) {
 // start in ticket order and every row a CTA may wait on has started (no
 // deadlock).  An inert row (count 0) is a no-op, and ends the CTA when no
 // live row follows it.
-template <typename K, typename W>
+template <typename K, typename W, typename D>
 __global__ void __launch_bounds__(kPassThreads, 2)
 fused_pass_kernel(const PassArgs<K, W> a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -490,7 +500,7 @@ fused_pass_kernel(const PassArgs<K, W> a) {
     if (count <= 0) {
       if (!live_from(a.blk_count, g + 1, a.rows)) return;
     } else if (a.blk_active[g]) {
-      partition_row(a, g, off, count, smem);
+      partition_row<K, W, D>(a, g, off, count, smem);
     } else {
       copy_through(a, off, count);
     }
@@ -502,7 +512,7 @@ REPRO_ERROR_STRING
 
 // A layout over the card's opt-in shared memory per CTA (227 KB on the
 // H100) is refused with cudaErrorInvalidValue.
-template <typename K, typename W>
+template <typename K, typename W, typename D>
 cudaError_t launch_pass(const PassArgs<K, W>& a, size_t shmem,
                         cudaStream_t s) {
   int dev = 0, optin = 0, per_sm = 0, sms = 0;
@@ -512,18 +522,18 @@ cudaError_t launch_pass(const PassArgs<K, W>& a, size_t shmem,
                                dev);
   if (e != cudaSuccess) return e;
   if (shmem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(fused_pass_kernel<K, W>,
+  e = cudaFuncSetAttribute(fused_pass_kernel<K, W, D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(shmem));
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_pass_kernel<K, W>, kPassThreads, shmem);
+        &per_sm, fused_pass_kernel<K, W, D>, kPassThreads, shmem);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  fused_pass_kernel<K, W><<<min(a.rows, per_sm * sms), kPassThreads, shmem,
-                            s>>>(a);
+  fused_pass_kernel<K, W, D><<<min(a.rows, per_sm * sms), kPassThreads,
+                               shmem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -544,7 +554,9 @@ cudaError_t launch_pass(const void* src_keys, void* dst_keys,
                    static_cast<int*>(hist2), static_cast<int*>(scratch),
                    reinterpret_cast<W*>(static_cast<unsigned char*>(scratch) +
                                         16)};
-  return launch_pass(a, shmem, s);
+  // the 8-bit digits' path does not pay for 16-bit staging
+  return r > 256 ? launch_pass<K, W, uint16_t>(a, shmem, s)
+                 : launch_pass<K, W, uint8_t>(a, shmem, s);
 }
 
 // One fused pass over `rows` flat descriptor rows.  `scratch` is zeroed:
@@ -560,7 +572,7 @@ extern "C" int fused_pass_launch(
     int nlo, int nwidth, int n2lo, int n2width, int lookahead, int r,
     int a_max, int kpb, void* hist, void* hist2,
     void* scratch, int word_bytes, void* stream) {
-  if (r < 2 || r > 256 || num_vals < 0 || num_vals > kMaxLeaves || rows < 1 ||
+  if (r < 2 || r > 512 || num_vals < 0 || num_vals > kMaxLeaves || rows < 1 ||
       kpb < 1 || kpb > 65536 || (word_bytes != 4 && word_bytes != 8))
     return cudaErrorInvalidValue;
   Leaves leaves{};

@@ -35,7 +35,8 @@
 // Digits use the key dtype's own shift (logical for unsigned keys, the
 // `logical` flag, a template parameter; arithmetic for signed ones), as the
 // reference does.  The main path's carrier holds unsigned bits and shifts
-// logically.  Supports widths 1..8 (r <= 256).
+// logically.  hist_kernel takes widths 1..9 (r <= 512: 8 warps' (r,) int
+// sub-histograms are 16 KB), assigned_kernel widths 1..8.
 #include "common.cuh"
 
 constexpr int kHistThreads = 256;
@@ -204,7 +205,7 @@ extern "C" int radix_histogram_launch(const void* keys, long long n,
                                       int head0, int shift, int width,
                                       int logical, void* out, int accumulate,
                                       void* stream) {
-  if (width < 1 || width > 8 || grid < 1 || head0 < 0 ||
+  if (width < 1 || width > 9 || grid < 1 || head0 < 0 ||
       head0 * key_bytes >= 16)
     return cudaErrorInvalidValue;
   const size_t shmem = sizeof(int) * (kHistThreads / 32) * (1 << width);

@@ -28,6 +28,8 @@ from repro_torch.kernels.histogram import digit_total
 
 #: value leaves one launch carries (the C side's pointer table)
 MAX_LEAVES = 8
+#: the widest digit histogram the CUDA pass takes: d <= 9
+MAX_RADIX = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,8 +87,9 @@ def initial_histogram(buf_keys: torch.Tensor, n: int, lo: int, width: int,
 
 def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
             next_sid, kpb, r, a_max, n, lookahead):
-    if r > 256:
-        raise ValueError(f"the CUDA fused pass supports d <= 8, got r = {r}")
+    if r > MAX_RADIX:
+        raise ValueError(f"the CUDA fused pass supports d <= 9 (r <= "
+                         f"{MAX_RADIX}), got r = {r}")
     if len(src_vals) > MAX_LEAVES:
         raise ValueError(f"at most {MAX_LEAVES} value leaves per launch")
     for v in src_vals:

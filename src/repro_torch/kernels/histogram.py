@@ -6,7 +6,7 @@ vector loads, per-warp shared sub-histograms with plain atomics, runs of
 equal digits merged in registers: the paper's Fig. 2 fix for skew); on a
 CPU tensor they run the plain version in ``ref.py``.  Keys are any integer
 dtype; digits use the dtype's own shift (logical for unsigned keys).  Digit
-widths 1..8 only on the card.
+widths 1..9 on the card (the assigned histogram's 1..8).
 
 The host-side sizing is plain Python: ``aligned_split`` (the scalar head,
 16-byte body and scalar tail of a range) and ``total_grid`` (the prologue's
@@ -58,10 +58,14 @@ def sm_count(device) -> int:
     return _SMS[idx]
 
 
-def check_width(width: int) -> None:
-    if not 1 <= width <= 8:
-        raise ValueError(f"the CUDA histogram supports digit widths 1..8, "
-                         f"got {width}")
+#: the widest digit of the CUDA histogram (d <= 9, r <= 512)
+MAX_WIDTH = 9
+
+
+def check_width(width: int, limit: int = MAX_WIDTH) -> None:
+    if not 1 <= width <= limit:
+        raise ValueError(f"the CUDA histogram supports digit widths "
+                         f"1..{limit}, got {width}")
 
 
 def _launch(keys, n, chunk, grid, shift, width, out, accumulate,

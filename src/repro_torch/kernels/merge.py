@@ -13,8 +13,9 @@ launch of the merge kernel.  This module holds both halves of that merge:
     ``spill_group_plan``) are the reference's, unchanged: host runs are
     numpy arrays in the reference's unsigned ordered bits;
   * ``kway_merge_round``, the wrapper of ``csrc/merge.cu`` (one CTA per
-    output tile; see the source note).  On a CPU tensor it runs the plain
-    version ``ref.kway_merge_round_ref``.
+    output tile: a merge tree in shared memory and write-combined stores,
+    or on short tiles a per-lane rank and scatter; see the source note).
+    On a CPU tensor it runs the plain version ``ref.kway_merge_round_ref``.
 
 Device keys are the port's carrier (``core.bijection``): a signed dtype
 holding the unsigned ordered bits, so every order test here compares
@@ -40,6 +41,9 @@ MAX_LEAVES = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+_PROBE_ARGS = _ARGS[:-1] + [_I, _P]
+#: the kernels ``_kway_merge_probe`` can force (csrc/merge.cu: force)
+_PROBE = {"small": 1, "tree": 2}
 
 
 def merge_groups(lens, kway: int):
@@ -242,9 +246,12 @@ def spill_group_plan(runs, kway: int, tile: int, slab_elems: int):
 # --------- the merge kernel --------------------------------------------------
 
 def smem_bytes(kway: int, tpb: int, key_bytes: int) -> int:
-    """Shared memory of one CTA: the K staged windows of ``tpb`` keys plus
-    the per-run start / take / offset tables (``csrc/merge.cu``)."""
-    return kway * tpb * key_bytes + 4 * (3 * kway + 1) + 8
+    """Shared memory one CTA needs (``csrc/merge.cu``: windows_smem): the
+    per-run start / take / offset tables and the K staged windows of
+    ``tpb`` keys, each rounded up to 16 bytes.  The kernel adds the tree's
+    output table only where it fits next to them."""
+    return -(-4 * (3 * kway + 1) // 16) * 16 + -(-kway * tpb * key_bytes //
+                                                  16) * 16
 
 
 def _check_launch(src_keys, src_vals, alt_keys, alt_vals, tables, kway, tpb):
@@ -288,16 +295,34 @@ def kway_merge_round(src_keys, src_vals, alt_keys, alt_vals, out_off,
     ``rank`` is the reference's tile-rank mode (``"searchsorted"`` or the
     ``"counting"`` oracle).  Both compute the same function: the plain
     version follows the mode on a CPU tensor, and on a CUDA tensor both
-    launch the one kernel.
+    launch the kernel.
     """
     if rank not in ("searchsorted", "counting"):
         raise ValueError(f"unknown tile rank mode {rank!r}")
-    src_vals, alt_vals = tuple(src_vals), tuple(alt_vals)
-    tables = (out_off, out_cnt, win_start, win_take)
     if _build.on_cpu(src_keys):
-        return ref.kway_merge_round_ref(src_keys, src_vals, alt_keys,
-                                        alt_vals, *tables, kway=kway,
-                                        tpb=tpb, n=n, rank=rank)
+        return ref.kway_merge_round_ref(
+            src_keys, tuple(src_vals), alt_keys, tuple(alt_vals), out_off,
+            out_cnt, win_start, win_take, kway=kway, tpb=tpb, n=n, rank=rank)
+    return _launch(src_keys, src_vals, alt_keys, alt_vals,
+                   (out_off, out_cnt, win_start, win_take), kway, tpb, None)
+
+
+def _kway_merge_probe(src_keys, src_vals, alt_keys, alt_vals, out_off,
+                      out_cnt, win_start, win_take, *, kway: int, tpb: int,
+                      kernel: str):
+    """The round of :func:`kway_merge_round` on CUDA tensors with one of the
+    two kernels forced whatever the tile (``"small"``: the per-lane rank
+    and scatter; ``"tree"``: the merge tree, refused where the tree cannot
+    take the tile).  For timing only: ``scripts/torch_merge_breakdown.py``.
+    """
+    return _launch(src_keys, src_vals, alt_keys, alt_vals,
+                   (out_off, out_cnt, win_start, win_take), kway, tpb,
+                   _PROBE[kernel])
+
+
+def _launch(src_keys, src_vals, alt_keys, alt_vals, tables, kway, tpb,
+            force):
+    src_vals, alt_vals = tuple(src_vals), tuple(alt_vals)
     tables = tuple(t.reshape(-1).to(torch.int32).contiguous()
                    for t in tables)
     _check_launch(src_keys, src_vals, alt_keys, alt_vals, tables, kway, tpb)
@@ -310,12 +335,16 @@ def kway_merge_round(src_keys, src_vals, alt_keys, alt_vals, out_off,
     val_bytes = (ctypes.c_int * max(nv, 1))(*[v.element_size()
                                               for v in src_vals])
     dev = src_keys.device
-    fn = _build.function("merge", "kway_merge_launch", _ARGS)
+    args = [_build.ptr(src_keys), _build.ptr(alt_keys),
+            src_keys.element_size(), val_src, val_dst, val_bytes, nv,
+            *[_build.ptr(t) for t in tables], g, kway, tpb]
+    if force is None:
+        fn = _build.function("merge", "kway_merge_launch", _ARGS)
+    else:
+        fn = _build.function("merge", "kway_merge_probe", _PROBE_ARGS)
+        args.append(force)
     with torch.cuda.device(dev):
-        rc = fn(_build.ptr(src_keys), _build.ptr(alt_keys),
-                src_keys.element_size(), val_src, val_dst, val_bytes, nv,
-                *[_build.ptr(t) for t in tables], g, kway, tpb,
-                _build.stream_handle(dev))
+        rc = fn(*args, _build.stream_handle(dev))
     _build.check("merge", rc)
     _build.COUNTS["merge"] += 1
     return alt_keys, alt_vals

@@ -46,7 +46,7 @@ def _split(keys, vals, shift, width, key_bits, val_bits):
     if _build.on_cpu(keys):
         return ref.tile_multisplit_kv_ref(keys, vals, shift, width, key_bits,
                                           val_bits)
-    check_width(width)
+    check_width(width, 8)
     ref.check_multisplit_dtypes(keys, vals)
     b, logical = ref.signed_bits(keys.contiguous())
     t, kpb = b.shape

@@ -174,8 +174,14 @@ def bitonic_sort_rows_ref(keys: torch.Tensor, values=None):
     kernel's contract under duplicate keys (see ``bitonic_rows_ref``)."""
     b = int_view(keys)
     kind = row_kind(keys.dtype)
+    if kind in _FLOAT8_KINDS:
+        raise TypeError(f"the row-sort oracle does not take {keys.dtype} "
+                        f"keys (XLA's sort comparator for float8 is not "
+                        f"ported; the network, bitonic_rows_ref, takes them)")
+    if kind in NIBBLE_KINDS:
+        b = _row_network_prepare(b, kind)
     key = _row_order_key(b, kind)
-    if kind not in ("u", "s"):
+    if kind not in ("u", "s", *NIBBLE_KINDS):
         # XLA's sort comparator on the CPU: every NaN last, -0 == +0, and
         # f32 / f64 / bf16 subnormals equal to zero (flushed)
         exp, mant = _FLOAT_BITS[kind]
@@ -202,10 +208,26 @@ _ROW_KIND = {torch.bool: "u", torch.uint8: "u", torch.uint16: "u",
              torch.uint32: "u", torch.uint64: "u", torch.int8: "s",
              torch.int16: "s", torch.int32: "s", torch.int64: "s",
              torch.float16: "f16", torch.bfloat16: "bf16",
-             torch.float32: "f32", torch.float64: "f64"}
-#: float kinds: (exponent mask = +inf's bits, mantissa bits)
+             torch.float32: "f32", torch.float64: "f64",
+             torch.float8_e4m3fn: "e4m3fn", torch.float8_e5m2: "e5m2",
+             torch.float8_e4m3fnuz: "e4m3fnuz",
+             torch.float8_e5m2fnuz: "e5m2fnuz",
+             torch.float8_e8m0fnu: "e8m0fnu", torch.int4: "i4",
+             torch.uint4: "u4"}
+#: float kinds: (the largest magnitude that is not a NaN, mantissa bits);
+#: a magnitude above it is a NaN.  The fnuz kinds' one NaN is the bit
+#: pattern of -0 (the sign bit alone), and e8m0fnu has no sign bit: its
+#: bits are an unsigned exponent, all ones the NaN.
 _FLOAT_BITS = {"f16": (0x7C00, 10), "bf16": (0x7F80, 7),
-               "f32": (0x7F800000, 23), "f64": (0x7FF0000000000000, 52)}
+               "f32": (0x7F800000, 23), "f64": (0x7FF0000000000000, 52),
+               "e4m3fn": (0x7E, 3), "e5m2": (0x7C, 2),
+               "e4m3fnuz": (0x7F, 3), "e5m2fnuz": (0x7F, 2),
+               "e8m0fnu": (0x7E, 0)}
+_FNUZ = ("e4m3fnuz", "e5m2fnuz")
+_FLOAT8_KINDS = ("e4m3fn", "e5m2", *_FNUZ, "e8m0fnu")
+#: 4-bit integer kinds: one value per byte, in its low nibble (the high
+#: nibble is not part of the value, and the reference returns it 0)
+NIBBLE_KINDS = ("i4", "u4")
 
 
 def row_kind(dtype: torch.dtype) -> str:
@@ -219,21 +241,40 @@ def _row_order_key(b: torch.Tensor, kind: str) -> torch.Tensor:
     """A signed tensor whose order is the keys' order (floats: totalOrder,
     -0 below +0), from the signed bit view ``b``."""
     lo = torch.iinfo(b.dtype).min
-    if kind == "u":
+    if kind in ("u", "e8m0fnu"):
         return b ^ lo
     if kind == "s":
         return b
+    if kind == "u4":
+        return b & 0xF
+    if kind == "i4":
+        return (b & 0xF) ^ 0x8
     return torch.where(b < 0, b ^ ~lo, b)
+
+
+def _row_nan(b: torch.Tensor, kind: str) -> torch.Tensor:
+    """The NaN lanes of the float bit view ``b``."""
+    if kind in _FNUZ:
+        return b == torch.iinfo(b.dtype).min
+    if kind == "e8m0fnu":
+        return b == -1
+    return (b & ~torch.iinfo(b.dtype).min) > _FLOAT_BITS[kind][0]
 
 
 def _row_network_prepare(b: torch.Tensor, kind: str) -> torch.Tensor:
     """What the reference's first min/max stage does to float bits besides
     ordering them: XLA on the CPU flushes subnormal f32 / f64 / bf16
     operands to a zero of their sign (f16 is widened to f32 first and keeps
-    them), and turns every bf16 NaN into the quiet NaN of its sign.  Every
-    lane passes a min or a max in every stage, so doing this once before
-    the network (rows of L >= 2) is the same."""
-    if kind in ("u", "s", "f16"):
+    them), turns every bf16 NaN into the quiet NaN of its sign and every
+    float8_e5m2 NaN into +NaN (0x7F).  The other float8 kinds keep their
+    subnormals and NaNs.  Every lane passes a min or a max in every stage,
+    so doing this once before the network (rows of L >= 2) is the same.
+    The 4-bit kinds keep their low nibble (their value) at any L."""
+    if kind in NIBBLE_KINDS:
+        return b & 0xF
+    if kind == "e5m2":
+        return torch.where(_row_nan(b, kind), 0x7F, b).to(b.dtype)
+    if kind not in ("f32", "f64", "bf16"):
         return b
     lo = torch.iinfo(b.dtype).min
     exp, mant = _FLOAT_BITS[kind]
@@ -254,7 +295,11 @@ def bitonic_rows_ref(keys: torch.Tensor, vals=None):
     ``min``/``max`` are XLA's: NaN propagates (with one NaN operand, that
     NaN; with two, ``min`` keeps its own operand unless it is negative and
     ``max`` unless it is positive), ``min(+0, -0) = -0``, ``max = +0``.
-    Returns the sorted keys, or ``(keys, values)`` when ``vals`` is given.
+    float8_e8m0fnu's smallest value 0x00 (2^-127, a float32 subnormal)
+    compares as zero, below every other value, and where a min or max
+    returns it the result is 0xFF, the NaN (XLA's zero does not convert
+    back).  Returns the sorted keys, or ``(keys, values)`` when ``vals``
+    is given.
     """
     kind = row_kind(keys.dtype)
     b = int_view(keys)
@@ -262,12 +307,11 @@ def bitonic_rows_ref(keys: torch.Tensor, vals=None):
     s, length = b.shape
     if length & (length - 1):
         raise ValueError("row length must be a power of two")
-    if length >= 2:
+    if length >= 2 or kind in NIBBLE_KINDS:
         b = _row_network_prepare(b, kind)
-    is_float = kind not in ("u", "s")
+    is_float = kind not in ("u", "s", *NIBBLE_KINDS)
     if is_float:
-        lo = torch.iinfo(b.dtype).min
-        exp = _FLOAT_BITS[kind][0]
+        mag = ~torch.iinfo(b.dtype).min if kind != "e8m0fnu" else -1
     idx = torch.arange(length, device=b.device)
     for size_log in range(1, length.bit_length()):
         size = 1 << size_log
@@ -278,16 +322,18 @@ def bitonic_rows_ref(keys: torch.Tensor, vals=None):
             ox, oy = _row_order_key(b, kind), _row_order_key(y, kind)
             min_x, max_x = ox <= oy, ox >= oy
             if is_float:
-                xn, yn = (b & ~lo) > exp, (y & ~lo) > exp
+                xn, yn = _row_nan(b, kind), _row_nan(y, kind)
                 xneg, both = b < 0, ~xn & ~yn
                 min_x = (xn & (~yn | ~xneg)) | (both & min_x)
                 max_x = (xn & (~yn | xneg)) | (both & max_x)
             new = torch.where(torch.where(take_min, min_x, max_x), b, y)
+            if kind == "e8m0fnu":
+                new = torch.where(new == 0, -1, new).to(b.dtype)
             if v is not None:
                 moved = new != b
                 if is_float:
-                    moved = (((new & ~lo) > exp) | ((b & ~lo) > exp) |
-                             (moved & (((new | b) & ~lo) != 0)))
+                    moved = (_row_nan(new, kind) | _row_nan(b, kind) |
+                             (moved & (((new | b) & mag) != 0)))
                 v = torch.where(moved, v[:, part], v)
             b = new
     out = b.view(keys.dtype)

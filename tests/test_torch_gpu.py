@@ -153,6 +153,94 @@ def test_merge_kernel_degenerate_runs(dev, case):
     _merge_case(dev, runs, 4, tile, (torch.int32,))
 
 
+_MERGE_LEAVES = ((), (torch.int32,), (torch.int8, torch.int64, torch.int16),
+                 (torch.int8, torch.int16, torch.int32, torch.int64,
+                  torch.float16, torch.bfloat16, torch.float32,
+                  torch.float64))
+_CARRIER = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+@pytest.mark.parametrize("kway", range(1, 9))
+@pytest.mark.parametrize("tile", [256, 4096])
+@pytest.mark.parametrize("key_bytes", [1, 2, 4, 8])
+def test_merge_kernel_kway_tiles_and_widths(dev, kway, tile, key_bytes):
+    """kway 1-8 at tiles 256 and 4096, keys of 1/2/4/8 bytes with 0, 1, 3
+    or 8 value leaves (by kway), runs of uneven and empty lengths, and
+    duplicate-heavy keys for the narrow widths.  kway 7 with 8-byte keys at
+    tile 4096 leaves no room for the tree's output table (the round runs
+    the short-tile kernel); kway 8 there is over shared memory and
+    refused."""
+    lens = [9000, 17, 0, 5000, 999, 1, 7000, 513][:kway]
+    if kway == 1:
+        lens = [9001]
+    from repro_torch.kernels import merge
+    hi = 2 ** min(8 * key_bytes - 1, 40)
+    runs = _sorted_runs(dev, lens, _CARRIER[key_bytes], hi, kway * tile)
+    if merge.smem_bytes(kway, tile, key_bytes) > merge.SMEM_LIMIT:
+        with pytest.raises(ValueError, match="shared memory"):
+            _merge_case(dev, runs, kway, tile, ())
+        return
+    _merge_case(dev, runs, kway, tile, _MERGE_LEAVES[kway % 4])
+
+
+@pytest.mark.parametrize("kernel", ["small", "tree"])
+@pytest.mark.parametrize("tile", [256, 4096])
+def test_merge_probe_kernels_equal_plain(dev, kernel, tile):
+    """The two kernels the timing probe forces compute the same round."""
+    from repro_torch.kernels import merge, ref
+    from repro_torch.kernels.fused import pad_length
+    runs = _sorted_runs(dev, [9000, 17, 5000, 999], torch.int32, 2**31, 4)
+    lens = [r.numel() for r in runs]
+    n = sum(lens)
+    keys = torch.cat(runs + [runs[0].new_full((pad_length(n, tile) - n,),
+                                              -1)])
+    vals = (torch.arange(keys.numel(), dtype=torch.int32, device=dev),)
+    tables = merge.merge_path_partition(keys, lens, 4, tile)
+    got = merge._kway_merge_probe(
+        keys, vals, torch.full_like(keys, -1), (torch.zeros_like(vals[0]),),
+        *tables, kway=4, tpb=tile, kernel=kernel)
+    want = ref.kway_merge_round_ref(
+        keys, vals, torch.full_like(keys, -1), (torch.zeros_like(vals[0]),),
+        *tables, kway=4, tpb=tile, n=n)
+    assert torch.equal(got[0][:n], want[0][:n])
+    assert torch.equal(got[1][0][:n], want[1][0][:n])
+
+
+def test_merge_kernel_dead_tiles_and_short_counts(dev):
+    """A spill strip's zero-count padding tiles, and tiles whose out_cnt is
+    below their live lanes (ranks past it write nothing): the kernel and
+    the plain version write the same slots."""
+    from repro_torch.kernels import merge, ref
+    tile, kway, slab = 256, 4, 4096
+    host = [np.sort(np.random.default_rng(r).integers(0, 500, m)).astype(
+        np.uint32) for r, m in enumerate((1000, 700, 1, 1500))]
+    strips = merge.spill_group_plan(host, kway, tile, slab)
+    assert any((s.tables[1] == 0).any() for s in strips)
+    for strip in strips:
+        wins = [h[lo:lo + ln] for h, lo, ln in zip(host, strip.win_lo,
+                                                   strip.win_len)]
+        buf = np.concatenate(wins + [np.full(slab + tile - strip.out_len,
+                                             0xFFFFFFFF, np.uint32)])
+        keys = torch.from_numpy(buf.view(np.int32)).to(dev)   # the carrier
+        for cut in (False, True):
+            tables = [torch.from_numpy(t.copy()).to(dev)
+                      for t in strip.tables]
+            if cut:
+                tables[1] = torch.clamp(tables[1] - 37, min=0)
+            vals = (torch.arange(keys.numel(), dtype=torch.int32,
+                                 device=dev),)
+            outs = []
+            for fn in (merge.kway_merge_round, ref.kway_merge_round_ref):
+                ak = torch.full_like(keys, -1)
+                av = (torch.full_like(vals[0], -1),)
+                outs.append(fn(keys, vals, ak, av, *tables, kway=kway,
+                               tpb=tile, n=slab))
+            torch.cuda.synchronize()
+            (gk, gv), (wk, wv) = outs
+            assert torch.equal(gk[:slab], wk[:slab])
+            assert torch.equal(gv[0][:slab], wv[0][:slab])
+
+
 def test_merge_kernel_refuses_too_much_shared_memory(dev):
     from repro_torch.kernels import merge
     keys = torch.zeros(8 * 4096 * 2, dtype=torch.int64, device=dev)
@@ -216,6 +304,47 @@ def test_rows_kernel_equals_plain(dev, dtype, length):
     from repro_torch.kernels import bitonic, ref
     rng = np.random.default_rng(length)
     keys = _rows_input(rng, (max(3, 65536 // length), length), dtype).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=dev).reshape(keys.shape)
+    assert _bits_equal(bitonic.bitonic_sort_rows(keys),
+                       ref.bitonic_rows_ref(keys))
+    gk, gv = bitonic.bitonic_sort_rows_kv(keys, vals)
+    wk, wv = ref.bitonic_rows_ref(keys, vals)
+    assert _bits_equal(gk, wk) and torch.equal(gv, wv)
+
+
+_BYTE_KINDS = [torch.float8_e4m3fn, torch.float8_e5m2, torch.float8_e4m3fnuz,
+               torch.float8_e5m2fnuz, torch.float8_e8m0fnu, torch.int4,
+               torch.uint4]
+#: encodings every one-byte kind has a rule for: 0 and the sign bit alone
+#: (±0, or the fnuz NaN), the NaNs / infinities at the top of each format,
+#: subnormals, and 4-bit values with high-nibble bits set
+_BYTE_SPECIALS = np.array([0x00, 0x80, 0x7F, 0xFF, 0x7E, 0xFE, 0x7C, 0xFC,
+                           0x7D, 0x01, 0x81, 0x03, 0x83, 0x18, 0xF3],
+                          np.uint8)
+
+
+def _byte_rows(rng, shape, dtype):
+    bits = rng.integers(0, 256, shape, dtype=np.uint8)
+    m = rng.random(shape) < 0.3
+    bits[m] = rng.choice(_BYTE_SPECIALS, int(m.sum()))
+    return torch.from_numpy(bits).view(dtype)
+
+
+@pytest.mark.parametrize("dtype", _BYTE_KINDS + [torch.uint32, torch.int32,
+                                                 torch.int16, torch.float32,
+                                                 torch.bfloat16,
+                                                 torch.int64], ids=str)
+@pytest.mark.parametrize("length", [2, 4, 32, 256, 2048, 4096, 16384])
+def test_rows_kernel_every_kind_and_length(dev, dtype, length):
+    """Every compare kind the network takes (the float8 formats and the
+    4-bit integers with their special encodings), rows of 2..16384 keys:
+    short rows share a CTA, 16384 gives each thread two lane groups."""
+    from repro_torch.kernels import bitonic, ref
+    rng = np.random.default_rng(length + 7)
+    shape = (max(3, (1 << 17) // length) + 1, length)
+    keys = (_byte_rows(rng, shape, dtype) if dtype in _BYTE_KINDS
+            else _rows_input(rng, shape, dtype)).to(dev)
     vals = torch.arange(keys.numel(), dtype=torch.int32,
                         device=dev).reshape(keys.shape)
     assert _bits_equal(bitonic.bitonic_sort_rows(keys),
@@ -302,8 +431,63 @@ def test_library_kernels_refuse_widths_above_8(dev):
         multisplit.tile_multisplit(keys, 0, 9, 32)
     with pytest.raises(ValueError, match="widths 1..8"):
         assigned.assigned_histogram(keys, idx, idx, 0, 9)
-    with pytest.raises(ValueError, match="widths 1..8"):
-        histogram.radix_histogram(keys, 0, 9)
+    with pytest.raises(ValueError, match="widths 1..9"):
+        histogram.radix_histogram(keys, 0, 10)
+
+
+def test_hybrid_sort_refuses_digits_above_9_bits(dev):
+    from repro_torch import SortConfig, hybrid_sort
+    cfg = SortConfig(d=10, kpb=256, local_threshold=300, merge_threshold=200)
+    keys = torch.zeros(1000, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="d <= 9"):
+        hybrid_sort(keys, cfg=cfg)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int64])
+@pytest.mark.parametrize("ands", [0, 3])
+def test_hybrid_sort_9bit_digits_on_card_equals_cpu(dev, dtype, ands):
+    """d = 9 (r = 512) through the fused pass and the histogram: keys,
+    values and stats equal to the plain versions' run on the CPU, one fused
+    launch per executed pass."""
+    from repro_torch import SortConfig, hybrid_sort
+    from repro_torch.kernels import COUNTS, reset_counts
+    cfg = SortConfig(d=9, kpb=384, local_threshold=300, merge_threshold=200)
+    rng = np.random.default_rng(9)
+    bits = _keys(rng, 60000, ands)
+    x = ((bits.astype(np.int64) << 31) ^ rng.integers(0, 2**31, bits.size)
+         if dtype == np.int64 else bits)
+    vals = np.arange(x.size, dtype=np.int32)
+    reset_counts()
+    got_k, got_v, got_s = hybrid_sort(x, vals, cfg=cfg, return_stats=True)
+    torch.cuda.synchronize()
+    assert COUNTS["histogram"] == 1
+    assert COUNTS["fused_pass"] == got_s.counting_passes
+    want_k, want_v, want_s = hybrid_sort(x, vals, cfg=cfg, engine="kernel",
+                                         return_stats=True, device="cpu")
+    assert got_k.cpu().numpy().tobytes() == want_k.numpy().tobytes()
+    assert torch.equal(got_v.cpu(), want_v)
+    assert tuple(got_s) == tuple(want_s)
+    assert got_k.cpu().numpy().tobytes() == np.sort(x).tobytes()
+
+
+@pytest.mark.parametrize("key_bytes", [2, 4, 8])
+def test_histogram_9bit_digits_equal_plain(dev, key_bytes):
+    """r = 512 in both modes of the histogram (the whole-array total and
+    the (T, r) rows), on aligned and unaligned views."""
+    from repro_torch.kernels import histogram, ref
+    rng = np.random.default_rng(90 + key_bytes)
+    bits = 8 * key_bytes
+    t = _carrier(rng.integers(0, 2**bits, 70001,
+                              dtype=_KEY_DTYPES[key_bytes])).to(dev)
+    for shift in (bits - 9, 0, 3):
+        for view, n in ((t, t.numel()), (t[1:], 4097), (t[3:], 17)):
+            got = histogram.digit_total(view, n, shift, 9)
+            want = ref.radix_histogram_ref(view[:n].reshape(1, -1), shift,
+                                           9)[0]
+            assert torch.equal(got, want), (shift, n)
+        tiles = t[:103 * 679].reshape(-1, 103)
+        assert torch.equal(histogram.radix_histogram(tiles, shift, 9),
+                           ref.radix_histogram_ref(tiles, shift, 9))
 
 
 # ---- the redesigned histogram and fused pass (vector loads, match-free
@@ -408,7 +592,7 @@ def _assert_pass_bytes_equal(got, want, n):
 
 
 @pytest.mark.parametrize("key_bytes", [1, 2, 4, 8])
-@pytest.mark.parametrize("d", [1, 3, 5, 8])
+@pytest.mark.parametrize("d", [1, 3, 5, 8, 9])
 def test_fused_kernel_widths_equal_plain(dev, key_bytes, d):
     """Key widths 1-8 bytes, digit widths, unaligned row starts (segments
     at odd offsets), gaps copied through, 8 value leaves of mixed widths,
@@ -541,6 +725,28 @@ def test_fused_kernel_inert_rows_mid_table(dev):
     got = _run_pass(fused.fused_counting_pass, inp, True)
     torch.cuda.synchronize()
     _assert_pass_bytes_equal(got, want, n)
+
+
+@pytest.mark.parametrize("key_bytes", [4, 8])
+def test_fused_kernel_512_digits_at_table3_kpb(dev, key_bytes):
+    """r = 512 at KPB 6912 with leaves up to 8 bytes (the widest shared
+    layout, about 210 KB with 8-byte keys), one region and many regions,
+    unaligned rows included."""
+    from repro_torch.kernels import fused, ref
+    rng = np.random.default_rng(512 + key_bytes)
+    n = 1 << 18
+    cuts = np.sort(rng.choice(np.arange(1, n), 120, replace=False))
+    edges = np.concatenate([[3], cuts, [n]])
+    many = [(int(a), int(b - a)) for a, b in zip(edges[:-1], edges[1:])
+            if b - a > 40][:100]
+    for pass_idx, bounds, a_max in ((0, [(0, n)], 2), (1, many, 128)):
+        inp = _pass_inputs(dev, rng, n, key_bytes, 9, pass_idx, bounds,
+                           a_max, 6912, 4)
+        for lookahead in (False, True):
+            want = _run_pass(ref.fused_counting_pass_ref, inp, lookahead)
+            got = _run_pass(fused.fused_counting_pass, inp, lookahead)
+            torch.cuda.synchronize()
+            _assert_pass_bytes_equal(got, want, n)
 
 
 def test_fused_kernel_refuses_rows_over_shared_memory(dev):

@@ -205,3 +205,22 @@ def test_8bit_keys_full_digit_parity(rng, dtype):
     x = rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max, 3000,
                      dtype=dtype, endpoint=True)
     _check(x, np.arange(3000, dtype=np.int32), TCFG)
+
+
+@pytest.mark.parametrize("d", [9, 12])
+@pytest.mark.parametrize("keys", ["uniform", "and3"])
+@pytest.mark.parametrize("with_values", [False, True])
+def test_wide_digit_parity(rng, d, keys, with_values):
+    """Digits of 9 bits (r = 512, the CUDA kernels' widest; Kimi K2's 384
+    experts make one such pass) and 12 bits: several passes on uniform keys
+    and on AND-3 keys, keys / values / stats equal to the reference."""
+    cfg = JConfig(d=d, kpb=64, local_threshold=16 if d == 9 else 2,
+                  merge_threshold=8 if d == 9 else 1)
+    n = 6000 if d == 9 else 12000
+    x = rng.integers(0, 2**32, n, dtype=np.uint32)
+    if keys == "and3":
+        for _ in range(3):
+            x &= rng.integers(0, 2**32, n, dtype=np.uint32)
+    stats = _check(x, np.arange(n, dtype=np.int32) if with_values else None,
+                   cfg)
+    assert stats[0] >= 2                          # executed counting passes
