@@ -25,7 +25,11 @@ just after:
   is checked and one sort is profiled; then the same 2^28 KV sort at
   Table 3's (4,0) config with d = 9 (r = 512): its histogram and fused
   passes held to their plain versions at r = 512, the counted sort byte
-  for byte against ``torch.sort(stable=True)``, its census checked;
+  for byte against ``torch.sort(stable=True)``, its census checked; then
+  (``wide_digits``) the same at wide digits, 2^26 uint32 keys with int32
+  values at d = 12 and 2^24 uint32 keys at d = 16 (the fused pass's wide
+  variant, the histogram's wide tables, ``merge_rows`` at r = 65536),
+  each kernel's time and the wide pass's scratch bytes printed;
 * the library surface, each public entry point of
   ``repro_torch.kernels`` whose TPU kernel no sort path calls
   (``bitonic_sort_rows``, ``bitonic_sort_rows_kv``, ``tile_multisplit``,
@@ -40,7 +44,12 @@ just after:
   instructions at the INT32 rate); the row sort over int32, float32 with
   ±0 / NaN / ±inf, int64, float64, uint16, the five float8 formats and
   int4 / uint4 keys (with their special encodings, also with values) and
-  the KV row sort at L = 16384 are checked at 2^20 keys;
+  the KV row sort at L = 16384 are checked at 2^20 keys, the multisplit
+  (keys and KV) and the assigned histogram at widths 9, 12 and 16 on
+  (512, 6912) uint32 and uint64 tiles; the multisplit is timed beside
+  ``torch.sort(digit, dim=1, stable=True)`` with the gather of keys (and
+  values), the assigned histogram beside the gather of its tiles and one
+  ``torch.bincount``;
 * the out-of-core path, ``repro_torch.oocsort``, on 2^30 uint32 keys with an
   int32 index value (8 GiB of 8-byte records) in chunks of 2^28, kway 4,
   tile 4096 (4 runs, one merge round): ``merge_check`` holds the merge
@@ -317,12 +326,16 @@ def check_histogram(torch, keys_u32, kpb, reps):
     return out
 
 
-def _pass_bytes(rec, n, lookahead):
+def _pass_bytes(torch, rec, n, lookahead):
+    """Keys and leaves read and written once, the descriptor rows read,
+    of the (a_max, r) base_excl and next_sid tables only the rows of the
+    segments that live rows partition, the next-pass histograms written."""
     kb = rec["src_keys"].element_size()
     vb = sum(v.element_size() for v in rec["src_vals"])
     a_max, r = rec["kw"]["a_max"], rec["kw"]["r"]
-    g = rec["tables"][0].numel()
-    tables = 5 * g * 4 + 2 * a_max * r * 4
+    seg, _, _, count, active = (t.reshape(-1) for t in rec["tables"][:5])
+    segs = torch.unique(seg[(count > 0) & (active > 0)]).numel()
+    tables = 5 * seg.numel() * 4 + 2 * segs * r * 4
     return 2 * n * (kb + vb) + tables + a_max * r * 4 * (2 if lookahead else 1)
 
 
@@ -362,7 +375,7 @@ def check_fused(torch, rec, n, label, reps):
     live = (count > 0) & (active > 0)
     unaligned = int((live & (off * keys.element_size() % 16 != 0)).sum())
     res = dict(ms=ms, plain_ms=plain, max_abs_err=err,
-               bound_ms=bound_ms(_pass_bytes(rec, n,
+               bound_ms=bound_ms(_pass_bytes(torch, rec, n,
                                              kw.get("lookahead", False))),
                rows=off.numel(), live_rows=int(live.sum()),
                unaligned_rows=unaligned,
@@ -666,6 +679,7 @@ def library_phase(torch, np, log2n, reps, dev):
     other key dtypes and the widest local-sort class at 2^20 keys."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
+    from repro_torch.kernels.ref import int_view
     inp = library_inputs(torch, np, log2n, dev)
     counts = library_counted(torch, inp)
     keys, dup, vals = inp["row_keys"], inp["dup_keys"], inp["row_vals"]
@@ -692,27 +706,100 @@ def library_phase(torch, np, log2n, reps, dev):
     t, kpb = tk.shape
     nt = tk.numel()
     hist_bytes = t * 256 * 4
+    # the library yardstick of rows 7-8: two calls, torch.sort of the
+    # tiles' digits (computed outside the timed window) with the gather of
+    # the keys (and values) through its order
+    bits = int_view(tk)
+    digits = ((bits >> 24) & 255).to(torch.int32)
+
+    def sort_gather(*moved):
+        order = torch.sort(digits, dim=1, stable=True).indices
+        return [torch.gather(m, 1, order) for m in moved]
+
     out["multisplit"] = library_check(
         torch, "multisplit", K.tile_multisplit,
         lambda k, *a: ref.tile_multisplit_kv_ref(k, None, *a),
         (tk, 24, 8, 32), reps, nt * 4 + nt * 12 + hist_bytes,
-        shape=list(tk.shape))
+        library=lambda: sort_gather(bits), shape=list(tk.shape),
+        library_call="torch.sort(digit, dim=1, stable=True) + torch.gather")
     out["multisplit_kv"] = library_check(
         torch, "multisplit_kv", K.tile_multisplit_kv,
         ref.tile_multisplit_kv_ref, (tk, tv, 24, 8, 32, 32), reps,
-        nt * 4 + nt * 12 + hist_bytes + 2 * nt * 4, shape=list(tk.shape))
+        nt * 4 + nt * 12 + hist_bytes + 2 * nt * 4,
+        library=lambda: sort_gather(bits, tv), shape=list(tk.shape),
+        library_call="torch.sort(digit, dim=1, stable=True) + 2 torch.gather")
+    del digits
     idx, valid = inp["tile_idx"], inp["valid"]
     g = idx.numel()
+    # row 9's: the gather of its tiles plus one torch.bincount of their
+    # digits offset by slot, scaled by valid
+    slot_base = (torch.arange(g, device=dev, dtype=torch.int64) * 256)[:, None]
+
+    def gather_bincount():
+        sel = bits.index_select(0, idx.long())
+        counts = torch.bincount((((sel >> 24) & 255) + slot_base).flatten(),
+                                minlength=g * 256)
+        return counts.view(g, 256).to(torch.int32) * valid[:, None]
+
+    need(torch.equal(gather_bincount(), ref.assigned_histogram_ref(
+        tk, idx, valid, 24, 8)), "library: gather + bincount != assigned")
     out["assigned_hist"] = library_check(
         torch, "assigned_hist", K.assigned_histogram,
         ref.assigned_histogram_ref, (tk, idx, valid, 24, 8), reps,
-        int(valid.ne(0).sum()) * kpb * 4 + g * 256 * 4, slots=g)
+        int(valid.ne(0).sum()) * kpb * 4 + g * 256 * 4, slots=g,
+        library=gather_bincount,
+        library_call="index_select + torch.bincount")
     for key in list(inp):
         del inp[key]
-    del keys, dup, vals, tk, tv, idx, valid
+    del keys, dup, vals, tk, tv, idx, valid, bits
     torch.cuda.empty_cache()
     library_dtypes(torch, np, dev)
+    library_wide(torch, np, dev)
     return out, counts
+
+
+def library_wide(torch, np, dev):
+    """Equality-only checks of the multisplit (keys and KV) and the
+    assigned histogram at digit widths 9, 12 and 16 (two 8-bit rounds;
+    the assigned histogram's shared table, and global atomics past 14
+    bits), on (512, 6912) uint32 tiles and on uint64 tiles."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(1617)
+    shape = (512, LIB_KPB)
+    checked = []
+    for dtype, bits in ((np.uint32, 32), (np.uint64, 64)):
+        x = rng.integers(0, 2**bits - 1, shape, dtype=dtype)
+        x[7] = x[7, 0]                                   # an all-equal tile
+        keys = torch.from_numpy(x).to(dev)
+        vals = torch.arange(keys.numel(), dtype=torch.int32,
+                            device=dev).reshape(shape)
+        idx = torch.from_numpy(np.concatenate([
+            rng.permutation(shape[0]), [-1, 600]]).astype(np.int32)).to(dev)
+        valid = torch.ones_like(idx)
+        valid[:3] = torch.tensor([0, 2, -3], dtype=torch.int32)
+        for width in (9, 12, 16):
+            shift = bits - width - 1
+            cases = (
+                ("multisplit", K.tile_multisplit,
+                 lambda k, *a: ref.tile_multisplit_kv_ref(k, None, *a),
+                 (keys, shift, width, bits)),
+                ("multisplit_kv", K.tile_multisplit_kv,
+                 ref.tile_multisplit_kv_ref,
+                 (keys, vals, shift, width, bits, 32)),
+                ("assigned_hist", K.assigned_histogram,
+                 ref.assigned_histogram_ref,
+                 (keys, idx, valid, shift, width)))
+            for label, kernel, plain, args in cases:
+                err = _bits_err(torch, kernel(*args), plain(*args))
+                need(err == 0, f"{label} (width {width}, {bits}-bit keys) "
+                     f"!= plain version")
+            checked.append([bits, width])
+        del keys, vals
+        torch.cuda.empty_cache()
+    emit({"phase": "library_wide", "tiles": list(shape),
+          "kernels": ["multisplit", "multisplit_kv", "assigned_hist"],
+          "key_bits_and_widths": checked, "equal": True})
 
 
 def library_dtypes(torch, np, dev):
@@ -957,6 +1044,97 @@ def d9_phase(torch, np, log2n, reps, dev):
           "local_sort": launches["local_sort"], "classes": classes,
           "static_census": 2 + classes})
     return res, fused_res
+
+
+#: the main path at wide digits, Table 3's (4,0) config with d = 12 (2^26
+#: uint32 keys with int32 values, 3 nominal passes) and d = 16 (2^24 uint32
+#: keys alone, 2 nominal passes: at 2^28 the plan's (a_max, r) tables
+#: would be about 7.6 GB each); log2 n below the main size
+WIDE = ((12, 2, True), (16, 4, False))
+
+
+def wide_case(torch, np, d, n, with_values, reps, dev):
+    """One wide-digit sort: the prologue histogram (total and rows) and
+    every fused pass held to their plain versions and timed, merge_rows at
+    this r, then the counted sort byte for byte against
+    ``torch.sort(stable=True)`` with its census."""
+    from repro_torch.core import bijection, hybrid, plan
+    from repro_torch.core.model import SortConfig
+    from repro_torch.kernels import fused, histogram, ref
+    cfg = SortConfig(**dict(D9, d=d))
+    label = f"uint32_uniform{'_kv' if with_values else ''}_d{d}"
+    keys = torch.from_numpy(np.random.default_rng(2017 + d).integers(
+        0, 2**32, n, dtype=np.uint32)).to(dev)
+    vals = (torch.arange(n, dtype=torch.int32, device=dev) if with_values
+            else None)
+    (ck, _), _ = fused.make_ping_pong(bijection.to_ordered_bits(keys), (),
+                                      cfg.kpb)
+    lo, width = plan.digit_window(0, 32, d)[:2]
+    tiles = ck.reshape(-1, cfg.kpb)
+    err = max_abs_err(torch, [
+        (histogram.digit_total(ck, n, lo, width),
+         ref.radix_histogram_ref(ck[:n].reshape(1, -1), lo, width)[0]),
+        (histogram.radix_histogram(tiles, lo, width),
+         ref.radix_histogram_ref(tiles, lo, width))])
+    need(err == 0, f"histogram (d = {d}) != plain")
+    digits = ((ck[:n] >> lo) & ((1 << width) - 1)).to(torch.int32)
+    hist = dict(
+        ms=cuda_ms(torch, lambda: histogram.digit_total(ck, n, lo, width),
+                   reps),
+        plain_ms=cuda_ms(torch, lambda: ref.radix_histogram_ref(
+            ck[:n].reshape(1, -1), lo, width), max(1, reps // 2)),
+        library_ms=cuda_ms(torch, lambda: torch.bincount(
+            digits, minlength=1 << width), reps),
+        bound_ms=bound_ms(n * 4 + (1 << width) * 4), max_abs_err=err)
+    del ck, tiles, digits
+    emit({"phase": "kernel_check", "kernel": "histogram", "keys": label,
+          "n": n, "width": width, "equal": True, **hist})
+    rec = capture(torch, keys, vals, passes=8, cfg=cfg)
+    need(rec["passes"] and all(r["kw"]["r"] == 1 << d for r in rec["passes"]),
+         f"d = {d}: the fused passes did not run at r = {1 << d}")
+    passes = []
+    for i, r in enumerate(rec["passes"]):
+        rows = r["tables"][0].numel()
+        res = check_fused(torch, r, n, f"{label}_pass{i}", reps)
+        res["scratch_bytes"] = fused.scratch_bytes(
+            rows, r["kw"]["r"], r["kw"]["a_max"], n)
+        passes.append(res)
+    merge = check_merge_rows(torch, rec["merge"][0], max(1, reps // 2))
+    del rec
+    torch.cuda.empty_cache()
+    res = main_case(torch, label, keys, with_values, reps, cfg=cfg)
+    launches = res["launches"]
+    classes = len(hybrid.local_sort_classes(n, cfg))
+    executed = res["stats"]["counting_passes"]
+    need(launches["histogram"] == 1 and launches["fused_pass"] == executed
+         and launches["local_sort"] <= classes,
+         f"d = {d}: census {launches} against 1 histogram, {executed} "
+         f"passes and at most {classes} local sorts")
+    need(len(passes) == executed,
+         f"d = {d}: {len(passes)} passes checked of {executed} executed")
+    emit({"phase": "wide_digits", "case": label, "n": n, "d": d,
+          "sort_ms": res["ms"], "torch_sort_ms": res["torch_sort_ms"],
+          "histogram_ms": hist["ms"],
+          "fused_pass_ms": [r["ms"] for r in passes],
+          "fused_pass_bound_ms": [r["bound_ms"] for r in passes],
+          "fused_scratch_bytes": [r["scratch_bytes"] for r in passes],
+          "merge_rows_ms": merge["ms"],
+          "census": {"histogram": launches["histogram"],
+                     "fused_pass": launches["fused_pass"],
+                     "passes": executed, "local_sort": launches["local_sort"],
+                     "classes": classes}})
+    return dict(sort=res, histogram=hist, passes=passes, merge_rows=merge)
+
+
+def wide_phase(torch, np, log2n, reps, dev):
+    """The main path at d = 12 and d = 16 (the fused pass's wide variant,
+    the histogram's wide tables), each case its own counted run."""
+    out = {}
+    for d, below, with_values in WIDE:
+        out[d] = wide_case(torch, np, d, 1 << (log2n - below), with_values,
+                           reps, dev)
+        torch.cuda.empty_cache()
+    return out
 
 
 def make_cases(torch, np, log2n, dev):
@@ -1441,6 +1619,14 @@ def run(args) -> int:
          f"a kernel of the d = 9 path was not launched: {d9['launches']}")
     torch.cuda.empty_cache()
 
+    # the main path at wide digits (d = 12 and 16; their own counted runs)
+    wide = wide_phase(torch, np, args.log2n, args.reps, dev)
+    for d, res in wide.items():
+        need(all(res["sort"]["launches"][k] > 0 for k in (
+            "histogram", "fused_pass", "local_sort", "merge_rows")),
+             f"a kernel of the d = {d} path was not launched: "
+             f"{res['sort']['launches']}")
+
     # phase 5: the out-of-core path (its own counted runs)
     kmerge_res, ooc_launches = ooc_phases(torch, np, args.log2n, args.reps)
     need(all(ooc_launches[k] > 0 for k in ("histogram", "fused_pass",
@@ -1471,6 +1657,19 @@ def run(args) -> int:
              bound_by="bytes",
              library_ms=kmerge_res["torch_sort_stable_ms"]),
     ]
+    w12 = wide[12]
+    kernels += [
+        dict(name="histogram_wide", route="cuda",
+             source=src + "histogram.cu",
+             replaces="src/repro/kernels/histogram.py:28",
+             launches=w12["sort"]["launches"]["histogram"],
+             **_k(w12["histogram"]), bound_by="bytes",
+             library_ms=w12["histogram"]["library_ms"]),
+        dict(name="fused_pass_wide", route="cuda",
+             source=src + "fused_pass.cu",
+             replaces="src/repro/kernels/fused.py:129",
+             launches=w12["sort"]["launches"]["fused_pass"],
+             **_k(w12["passes"][0]), bound_by="bytes", library_ms=None)]
     lib_src = {"bitonic_rows": ("bitonic_rows.cu", "bitonic.py:90"),
                "bitonic_rows_kv": ("bitonic_rows.cu", "bitonic.py:100"),
                "multisplit": ("multisplit.cu", "multisplit.py:87"),
@@ -1485,7 +1684,9 @@ def run(args) -> int:
             library_ms=lib_res[name]["library_ms"]))
     emit({"phase": "summary", "main_path": "uint32_uniform_kv",
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],
-          "torch_sort_ms": main["torch_sort_ms"], "d9_sort_ms": d9["ms"]})
+          "torch_sort_ms": main["torch_sort_ms"], "d9_sort_ms": d9["ms"],
+          "d12_kv_sort_ms": wide[12]["sort"]["ms"],
+          "d16_sort_ms": wide[16]["sort"]["ms"]})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,15 +5,28 @@ checkouts (a parent and a change) in one call to the card.
 Run from the root of the checkout whose package is timed (its ``src/``
 comes first on the path), naming this script by its path:
 
-    cd <checkout> && python3 <repo>/scripts/torch_checkout_times.py [merge] [zipf] [kv]
+    cd <checkout> && python3 <repo>/scripts/torch_checkout_times.py \
+        [merge] [zipf] [kv] [multisplit] [int64] [float32]
+        [histogram]
 
 ``merge`` times ``kway_merge_round`` on ``chip_smoke.py``'s out-of-core
 round (4 sorted runs of 2^28 uniform uint32 keys, an int32 index leaf,
 kway 4) at tiles 4096 and 256 and checks the output is sorted; ``zipf``
 times ``hybrid_sort`` on ``chip_smoke.py``'s Zipf(1.5) 2^26 uint32 keys
 and ``kv`` on 2^28 uniform uint32 keys with an int32 index (the main
-path's KV case), outside that script's run.  Medians of the timed runs
-after a warm-up, CUDA events; one JSON line each.
+path's KV case), outside that script's run; ``multisplit`` times
+``tile_multisplit`` and ``tile_multisplit_kv`` on tiles of the shape of
+``chip_smoke.py``'s library phase ((38 837, 6912) uniform uint32 keys,
+int32 values, shift 24, width 8); ``int64`` times ``hybrid_sort`` on 2^25
+uniform int64 keys and ``float32`` on 2^26 normal float32 keys with
+zeros, infinities and NaNs and an int32 index (``chip_smoke.py``'s int64
+and float32 cases), and each profiles one more run with
+``torch.profiler``: the device's busy time (the sum of its kernels,
+copies and memsets) beside the run's wall time, and the largest device
+entries; ``histogram`` times ``digit_total`` on 2^28 uniform uint32
+keys at width 8 (the main path's prologue, shift 24) and on 2^24 at width
+16 (null where the checkout refuses it).  Medians of the timed runs after a
+warm-up, CUDA events; one JSON line each.
 """
 import json
 import os
@@ -90,6 +103,79 @@ def kv_times(dev):
     return {"kv_ms": times, "kv_median_ms": statistics.median(times)}
 
 
+def multisplit_times(dev):
+    from repro_torch import kernels as K
+    tiles = -(-(1 << 28) // 6912)
+    keys = torch.from_numpy(np.random.default_rng(1614).integers(
+        0, 2**32, (tiles, 6912), dtype=np.uint32)).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=dev).reshape(keys.shape)
+    keys_ms = event_ms(lambda: K.tile_multisplit(keys, 24, 8, 32), 5)
+    kv_ms = event_ms(lambda: K.tile_multisplit_kv(keys, vals, 24, 8, 32, 32),
+                     5)
+    return {"shape": [tiles, 6912], "keys_ms": keys_ms,
+            "keys_median_ms": statistics.median(keys_ms), "kv_ms": kv_ms,
+            "kv_median_ms": statistics.median(kv_ms)}
+
+
+def profiled_sort(name, keys, vals=None):
+    """Times ``hybrid_sort`` and profiles one more run: the device's busy
+    time beside the run's wall time, and the largest device entries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import hybrid_sort
+    times = event_ms(lambda: hybrid_sort(keys, vals), 7)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        hybrid_sort(keys, vals)
+        e.record()
+        e.synchronize()
+    rows = sorted(((getattr(ev, "self_device_time_total", 0) / 1e3, ev.count,
+                    ev.key[:60]) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    return {f"{name}_ms": times, f"{name}_median_ms": statistics.median(times),
+            "profiled_wall_ms": s.elapsed_time(e),
+            "device_busy_ms": sum(r[0] for r in rows),
+            "top": [[key, calls, ms] for ms, calls, key in rows[:8]]}
+
+
+def int64_times(dev):
+    keys = torch.from_numpy(np.random.default_rng(2025).integers(
+        -2**63, 2**63 - 1, 1 << 25, dtype=np.int64)).to(dev)
+    return profiled_sort("int64", keys)
+
+
+def float32_times(dev):
+    rng = np.random.default_rng(2026)
+    f = (rng.standard_normal(1 << 26) * 1e3).astype(np.float32)
+    f[rng.choice(f.size, 4096, replace=False)] = np.resize(np.array(
+        [0.0, -0.0, np.inf, -np.inf, np.nan], np.float32), 4096)
+    keys = torch.from_numpy(f).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
+    return profiled_sort("float32", keys, vals)
+
+
+def histogram_times(dev):
+    from repro_torch.kernels import histogram
+    out = {}
+    for log2n, width in ((28, 8), (24, 16)):
+        keys = torch.from_numpy(np.random.default_rng(log2n).integers(
+            0, 2**32, 1 << log2n, dtype=np.uint32)).to(dev).view(torch.int32)
+        try:
+            times = event_ms(lambda: histogram.digit_total(
+                keys, keys.numel(), 32 - width, width), 9)
+        except ValueError:
+            times = None
+        out[f"n{log2n}_w{width}_ms"] = times
+        out[f"n{log2n}_w{width}_median_ms"] = (statistics.median(times)
+                                                if times else None)
+    return out
+
+
 def main(argv=None) -> int:
     what = (argv if argv is not None else sys.argv[1:]) or ["merge", "zipf"]
     if not torch.cuda.is_available():
@@ -97,8 +183,10 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     for name in what:
-        res = {"merge": merge_times, "zipf": zipf_times,
-               "kv": kv_times}[name](dev)
+        res = {"merge": merge_times, "zipf": zipf_times, "kv": kv_times,
+               "multisplit": multisplit_times, "int64": int64_times,
+               "float32": float32_times,
+               "histogram": histogram_times}[name](dev)
         print(json.dumps({"phase": f"checkout_{name}",
                           "checkout": os.path.basename(os.getcwd()), **res}),
               flush=True)

@@ -312,12 +312,6 @@ def hybrid_sort(keys, values: Any = None,
         adaptive = cfg.adaptive
     engine = resolve_engine(engine if engine is not None else cfg.rank_engine,
                             keys.device)
-    if engine == "kernel" and keys.device.type == "cuda" and cfg.d > 9:
-        raise ValueError(
-            f"the CUDA kernels support digits of d <= 9 bits (r <= 512), got "
-            f"d = {cfg.d}: the fused pass's in-tile rank keeps two (16, r) "
-            f"tables in shared memory and one look-back word per (row, "
-            f"digit), too much past r = 512")
     n = keys.shape[0]
     if n == 0:
         out = (keys, values) if values is not None else keys

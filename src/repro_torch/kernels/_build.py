@@ -43,6 +43,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
 _LIBS: dict = {}
 _FUNCS: dict = {}
+#: cudaErrorInvalidValue: what a launcher returns for arguments it refuses
+_INVALID_VALUE = 1
 
 
 def reset_counts() -> None:
@@ -120,23 +122,27 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes):
-    """A C entry point of kernel ``name`` with its ctypes signature set."""
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """A C entry point of kernel ``name`` with its ctypes signature set
+    (launchers return a CUDA error code; sizing queries a byte count)."""
     key = (name, symbol)
     fn = _FUNCS.get(key)
     if fn is None:
         fn = getattr(library(name), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FUNCS[key] = fn
     return fn
 
 
-def check(name: str, rc: int) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def check(name: str, rc: int, refused: str | None = None) -> None:
+    """Raise if a launch returned a CUDA error code; ``refused`` says what
+    the launcher refuses with cudaErrorInvalidValue."""
     if rc != 0:
         msg = library(name).repro_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name!r} failed: error {rc} ({msg})")
+        why = f": {refused}" if refused and rc == _INVALID_VALUE else ""
+        raise RuntimeError(f"CUDA kernel {name!r} failed: error {rc} "
+                           f"({msg}){why}")
 
 
 def stream_handle(device) -> ctypes.c_void_p:

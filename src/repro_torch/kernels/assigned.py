@@ -6,8 +6,8 @@ multiplies the row by ``valid[g]``: the launch pattern of paper §4.2, where
 a constant number of blocks each read their own assignment from a table.
 On a CUDA tensor it launches the ``assigned`` entry of
 ``csrc/histogram.cu`` (each CTA loads its own descriptor from global
-memory, in place of the TPU's scalar prefetch); on a CPU tensor it runs
-the plain version in ``ref.py``.
+memory, in place of the TPU's scalar prefetch; widths 1..16); on a CPU
+tensor it runs the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def assigned_histogram(keys: torch.Tensor, tile_idx: torch.Tensor,
     if _build.on_cpu(keys):
         return ref.assigned_histogram_ref(keys, tile_idx, valid, shift,
                                           width)
-    check_width(width, 8)
+    check_width(width)
     b, logical = ref.signed_bits(keys.contiguous())
     t, kpb = b.shape
     g = tile_idx.shape[0]

@@ -71,10 +71,39 @@
 // tables) + 4 r + 16 ints; at kpb 6912 with 4-byte keys and values
 // 110.3 KB at r = 256 (two CTAs of 512 threads per SM) and 155 KB at
 // r = 512 (one), with 8-byte keys and 8-byte values 164.3 KB and 210 KB.
-// Supports d <= 9 (r <= 512: the look-back's thread d still follows digit
-// d), kpb <= 2^16 within 227 KB, and up to kMaxLeaves value leaves of 1, 2,
-// 4 or 8 bytes.  Wider digits need another in-tile rank: the two (16, r)
-// tables alone are 128 KB at r = 1024, and the look-back words rows * r.
+// fused_pass_kernel takes d <= 9 (r <= 512: the look-back's thread d still
+// follows digit d), kpb <= 2^16 within 227 KB, and up to kMaxLeaves value
+// leaves of 1, 2, 4 or 8 bytes.
+//
+// fused_wide_kernel: the same function for 512 < r <= 65536 (d = 10..16),
+// chosen on the host by r.  Three parts of the kernel above grow with r and
+// do not fit there: the two (16, r) shared tables (128 KB at r = 1024), the
+// look-back words (one per (row, digit): 256 KB per row at d = 16) and the
+// long runs' (16, r) next-digit tables.  So, per partition row:
+//   * the rank is stable_digit_order (common.cuh, shared with the
+//     multisplit): two stable 8-bit counting rounds in shared memory, the
+//     digit's low byte then its high bits, each through warp_mask_rank; the
+//     row keeps a uint16 slot -> key order and each slot's digit; the row's
+//     histogram is then sparse, one (digit, count) run per distinct digit of
+//     the sorted digits (run_starts: at most one run per key);
+//   * the in-segment carry is the TPU's own sequential carry: a running
+//     (a_max, r) table in device memory, the shape of base_excl.  A row
+//     waits on the flag of the row before it in its region (a region's
+//     first row, reset == 1, waits on none; tickets make sure that row has
+//     started, so there is no deadlock), then adds each of its runs to the
+//     carry of its (segment, digit) with one atomicAdd, whose old value is
+//     the run's carry, and sets its own flag.  Only the carry step is
+//     serialised along a region (pass 0 is one region of every row), and
+//     scratch is O(a_max·r + rows), no more than the plan's own tables;
+//   * the next-pass counts are global atomics into hist / hist2, one per
+//     key, or one per warp step whose 32 keys share a (segment, next digit)
+//     bin (all-equal keys);
+//   * keys go out in runs, staged slot j of run k to delta[k] + j, read
+//     through the order from the row staged in index order; each value leaf
+//     comes into the same staging buffer with 16-byte loads and leaves the
+//     same way.
+// It takes kpb <= 2^16 within 227 KB (WideLayout: at kpb 6912 with 4-byte
+// keys and leaves 142 KB, one CTA of 512 threads per SM) and n < 2^31.
 #include <cuda/atomic>
 
 #include "common.cuh"
@@ -292,7 +321,9 @@ struct PassArgs {
   int* hist;
   int* hist2;
   int* ticket;
-  W* words;
+  W* words;         // fused_pass_kernel's look-back words
+  int* flags;       // fused_wide_kernel: (rows,) carry-done flags
+  int* carry;       // and the running (a_max, r) in-segment carry
 };
 
 // Copy-through row: key and every value leaf to their own index.
@@ -484,11 +515,10 @@ __device__ bool live_from(const int* blk_count, int g, int rows) {
 // Persistent CTAs: each takes a row by ticket as it becomes free, so rows
 // start in ticket order and every row a CTA may wait on has started (no
 // deadlock).  An inert row (count 0) is a no-op, and ends the CTA when no
-// live row follows it.
-template <typename K, typename W, typename D>
-__global__ void __launch_bounds__(kPassThreads, 2)
-fused_pass_kernel(const PassArgs<K, W> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// live row follows it.  `partition` runs an active row.
+template <typename K, typename W, typename Partition>
+__device__ __forceinline__ void take_rows(const PassArgs<K, W>& a,
+                                          Partition partition) {
   __shared__ int s_row;
   for (;;) {
     if (threadIdx.x == 0) s_row = atomicAdd(a.ticket, 1);
@@ -500,7 +530,7 @@ fused_pass_kernel(const PassArgs<K, W> a) {
     if (count <= 0) {
       if (!live_from(a.blk_count, g + 1, a.rows)) return;
     } else if (a.blk_active[g]) {
-      partition_row<K, W, D>(a, g, off, count, smem);
+      partition(g, off, count);
     } else {
       copy_through(a, off, count);
     }
@@ -508,13 +538,220 @@ fused_pass_kernel(const PassArgs<K, W> a) {
   }
 }
 
+template <typename K, typename W, typename D>
+__global__ void __launch_bounds__(kPassThreads, 2)
+fused_pass_kernel(const PassArgs<K, W> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  take_rows(a, [&](int g, long long off, int count) {
+    partition_row<K, W, D>(a, g, off, count, smem);
+  });
+}
+
+// ---- the wide variant (512 < r <= 65536) ----------------------------------
+
+// The longest a row waits for the row before it (about 10 s) before the
+// launch fails.
+constexpr long long kWaitCycles = 1LL << 34;
+// Runs a thread adds to the carry per batch of atomics in flight: one
+// batch covers a row of 16 * kPassThreads keys.
+constexpr int kCarryBatch = 16;
+
+// Byte offsets of the wide variant's shared memory: the staging buffer (the
+// row's keys in index order, then each leaf), the slot -> key order, the
+// rank scratch, the sorted digits, each slot's run start, each run's
+// destination offset (indexed by its first slot), the per-warp counts and
+// digit bitmasks of the 8-bit rounds, their bins and bin starts.
+struct WideLayout {
+  size_t order, tmp, sdig, rstart, delta, wcnt, masks, bins, total;
+  __host__ __device__ WideLayout(int kpb, int key_bytes, int leaf_bytes) {
+    const size_t k = static_cast<size_t>(kpb);
+    order = align16(k * (key_bytes > leaf_bytes ? key_bytes : leaf_bytes));
+    tmp = order + align16(2 * k);
+    sdig = tmp + align16(2 * k);
+    rstart = sdig + align16(2 * k);
+    delta = rstart + align16(2 * k);
+    wcnt = delta + align16(sizeof(int) * k);
+    masks = wcnt + sizeof(int) * kPassWarps * kRoundBins;
+    bins = masks + sizeof(unsigned) * kPassWarps * kRoundBins;
+    total = bins + sizeof(int) * 2 * kRoundBins;
+  }
+};
+
+// The wide variant's zeroed scratch: an int ticket, then at byte 16 one int
+// flag per row, then the int (a_max, r) carry table.
+__host__ __device__ inline size_t wide_flags_bytes(int rows) {
+  return align16(sizeof(int) * static_cast<size_t>(rows));
+}
+
+// One warp step of the wide next-pass count (every lane calls it): one
+// global atomic per live key, or one for the whole step when its 32 keys
+// share a bin.
+__device__ __forceinline__ void wide_count(int* hist, long long at,
+                                           int lane) {
+  const long long first = __shfl_sync(kFullMask, at, 0);
+  if (__all_sync(kFullMask, at == first)) {
+    if (lane == 0 && first >= 0) atomicAdd(hist + first, 32);
+  } else if (at >= 0) {
+    atomicAdd(hist + at, 1);
+  }
+}
+
+// One value leaf of the row: into the staging buffer with 16-byte loads,
+// then staged slot j's element to dst[delta[rstart[j]] + j].
+template <typename T>
+__device__ void move_leaf_wide(const void* src, void* dst, long long off,
+                               int count, void* stage,
+                               const unsigned short* order,
+                               const unsigned short* rstart,
+                               const int* delta) {
+  T* st = static_cast<T*>(stage);
+  __syncthreads();  // the stage buffer's last readers are done
+  load_row<T>(static_cast<const T*>(src) + off, count, st);
+  __syncthreads();
+  T* d = static_cast<T*>(dst);
+  for (int j = threadIdx.x; j < count; j += blockDim.x)
+    d[static_cast<long long>(delta[rstart[j]]) + j] = st[order[j]];
+}
+
+// Partition row g (active, count > 0) of segment blk_seg[g], r > 512.
+template <typename K, typename W>
+__device__ void partition_row_wide(const PassArgs<K, W>& a, int g,
+                                   long long off, int count,
+                                   unsigned char* smem) {
+  const int r = a.r;
+  const WideLayout lay(a.kpb, sizeof(K), a.leaf_bytes);
+  K* skeys = reinterpret_cast<K*>(smem);                   // index order
+  void* stage = smem;                                      // then each leaf
+  auto* order = reinterpret_cast<unsigned short*>(smem + lay.order);
+  auto* tmp = reinterpret_cast<unsigned short*>(smem + lay.tmp);
+  auto* sdig = reinterpret_cast<unsigned short*>(smem + lay.sdig);
+  auto* rstart = reinterpret_cast<unsigned short*>(smem + lay.rstart);
+  int* delta = reinterpret_cast<int*>(smem + lay.delta);  // by run start
+  int* wcnt = reinterpret_cast<int*>(smem + lay.wcnt);
+  auto* masks = reinterpret_cast<unsigned*>(smem + lay.masks);
+  int* bins = reinterpret_cast<int*>(smem + lay.bins);
+  int* bexcl = bins + kRoundBins;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int seg = a.blk_seg[g];
+  const long long seg_r = static_cast<long long>(seg) * r;
+  const int* bex = a.base_excl + seg_r;
+  const int* nsid = a.next_sid + seg_r;
+  if (tid == 0)   // the value leaves are read last: have L2 fetch them now
+    for (int v = 0; v < a.leaves.count; ++v)
+      prefetch_l2(a.leaves.src[v], off * a.leaves.bytes[v],
+                  (off + count) * a.leaves.bytes[v]);
+  for (int i = tid; i < kPassWarps * kRoundBins; i += blockDim.x)
+    masks[i] = 0;
+  load_row<K>(a.src_keys + off, count, skeys);
+  __syncthreads();
+
+  // 1. the row's stable digit-major order, its runs
+  stable_digit_order<kPassWarps>(
+      count, a.width,
+      [&](int i) { return digit_at(skeys[i], a.lo, a.width, true); }, order,
+      tmp, sdig, wcnt, masks, bins, bexcl);
+  run_starts(sdig, count, rstart, bins);
+
+  // 2. the carry.  Off the chain: each run's destination base, at its
+  //    first slot.  On it: wait for the row before in the region, add each
+  //    run to its (segment, digit) carry, release the next row.
+  __syncthreads();
+  for (int s = tid; s < count; s += blockDim.x)
+    if (s + 1 == count || sdig[s + 1] != sdig[s])   // a run's last slot
+      delta[rstart[s]] = bex[sdig[s]] - rstart[s];
+  if (tid == 0 && !a.blk_reset[g]) {
+    cuda::atomic_ref<int, cuda::thread_scope_device> prev(a.flags[g - 1]);
+    const long long t0 = clock64();
+    while (!prev.load(cuda::memory_order_acquire)) {
+      __nanosleep(32);
+      // a row before that never finishes is a broken descriptor table:
+      // fail the launch rather than hang the card
+      if (clock64() - t0 > kWaitCycles) __trap();
+    }
+  }
+  __syncthreads();
+  // every atomic of a batch is issued before any result is used, so the
+  // step costs one round trip to L2, not one per run
+  for (int s0 = tid; s0 < count; s0 += kCarryBatch * blockDim.x) {
+    int old[kCarryBatch], first[kCarryBatch];
+#pragma unroll
+    for (int u = 0; u < kCarryBatch; ++u) {
+      const int s = s0 + u * blockDim.x;
+      first[u] = -1;
+      if (s < count && (s + 1 == count || sdig[s + 1] != sdig[s])) {
+        first[u] = rstart[s];
+        old[u] = atomicAdd(a.carry + seg_r + sdig[s], s + 1 - first[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCarryBatch; ++u)
+      if (first[u] >= 0) delta[first[u]] += old[u];
+  }
+  __syncthreads();
+  if (tid == 0)   // the release orders every atomic the barrier ordered
+    cuda::atomic_ref<int, cuda::thread_scope_device>(a.flags[g]).store(
+        1, cuda::memory_order_release);
+
+  // 3. keys out in runs; next-pass counts
+  const bool count1 = a.nwidth > 0, count2 = a.lookahead && a.n2width > 0;
+  for (int base = tid & ~31; base < count; base += blockDim.x) {
+    const int j = base + lane;
+    const bool valid = j < count;
+    K key = 0;
+    int sid = a.a_max;
+    if (valid) {
+      key = skeys[order[j]];
+      a.dst_keys[static_cast<long long>(delta[rstart[j]]) + j] = key;
+      sid = nsid[sdig[j]];
+    }
+    const bool live = sid < a.a_max;
+    const long long row = static_cast<long long>(sid) * r;
+    if (count1)
+      wide_count(a.hist, live ? row + digit_at(key, a.nlo, a.nwidth, true)
+                              : -1, lane);
+    if (count2)
+      wide_count(a.hist2, live ? row + digit_at(key, a.n2lo, a.n2width, true)
+                               : -1, lane);
+  }
+
+  // 4. each value leaf through the staging buffer
+  for (int v = 0; v < a.leaves.count; ++v) {
+    const void* src = a.leaves.src[v];
+    void* dst = a.leaves.dst[v];
+    switch (a.leaves.bytes[v]) {
+      case 1: move_leaf_wide<uint8_t>(src, dst, off, count, stage, order,
+                                      rstart, delta); break;
+      case 2: move_leaf_wide<uint16_t>(src, dst, off, count, stage, order,
+                                       rstart, delta); break;
+      case 4: move_leaf_wide<uint32_t>(src, dst, off, count, stage, order,
+                                       rstart, delta); break;
+      default: move_leaf_wide<unsigned long long>(src, dst, off, count,
+                                                  stage, order, rstart,
+                                                  delta);
+    }
+  }
+}
+
+template <typename K, typename W>
+__global__ void __launch_bounds__(kPassThreads, 1)
+fused_wide_kernel(const PassArgs<K, W> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  take_rows(a, [&](int g, long long off, int count) {
+    partition_row_wide<K, W>(a, g, off, count, smem);
+  });
+}
+
 REPRO_ERROR_STRING
 
 // A layout over the card's opt-in shared memory per CTA (227 KB on the
-// H100) is refused with cudaErrorInvalidValue.
-template <typename K, typename W, typename D>
-cudaError_t launch_pass(const PassArgs<K, W>& a, size_t shmem,
-                        cudaStream_t s) {
+// H100) is refused with cudaErrorInvalidValue.  The grid is as many CTAs as
+// fit the card at once.
+template <typename K, typename W>
+cudaError_t launch_persistent(void (*kernel)(const PassArgs<K, W>),
+                              const PassArgs<K, W>& a, size_t shmem,
+                              cudaStream_t s) {
   int dev = 0, optin = 0, per_sm = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -522,18 +759,16 @@ cudaError_t launch_pass(const PassArgs<K, W>& a, size_t shmem,
                                dev);
   if (e != cudaSuccess) return e;
   if (shmem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(fused_pass_kernel<K, W, D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(shmem));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_pass_kernel<K, W, D>, kPassThreads, shmem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kPassThreads, shmem);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  fused_pass_kernel<K, W, D><<<min(a.rows, per_sm * sms), kPassThreads,
-                               shmem, s>>>(a);
+  kernel<<<min(a.rows, per_sm * sms), kPassThreads, shmem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -544,25 +779,43 @@ cudaError_t launch_pass(const void* src_keys, void* dst_keys,
                         const int* base_excl, const int* next_sid,
                         const int* windows, int lookahead, int r, int a_max,
                         int kpb, void* hist, void* hist2, void* scratch,
-                        size_t shmem, cudaStream_t s) {
+                        cudaStream_t s) {
+  auto* sc = static_cast<unsigned char*>(scratch);
   PassArgs<K, W> a{static_cast<const K*>(src_keys), static_cast<K*>(dst_keys),
                    leaves, leaf_bytes, tables[0], tables[1], tables[2],
                    tables[3], tables[4], rows, base_excl, next_sid,
                    windows[0], windows[1], windows[2], windows[3],
                    windows[4], windows[5], lookahead, r, a_max, kpb,
                    static_cast<int*>(hist),
-                   static_cast<int*>(hist2), static_cast<int*>(scratch),
-                   reinterpret_cast<W*>(static_cast<unsigned char*>(scratch) +
-                                        16)};
+                   static_cast<int*>(hist2), reinterpret_cast<int*>(sc),
+                   reinterpret_cast<W*>(sc + 16), reinterpret_cast<int*>(
+                       sc + 16), reinterpret_cast<int*>(
+                       sc + 16 + wide_flags_bytes(rows))};
+  if constexpr (std::is_same<W, uint32_t>::value) {   // no look-back words
+    if (r > 512)
+      return launch_persistent(fused_wide_kernel<K, W>, a,
+                               WideLayout(kpb, sizeof(K), leaf_bytes).total,
+                               s);
+  }
   // the 8-bit digits' path does not pay for 16-bit staging
-  return r > 256 ? launch_pass<K, W, uint16_t>(a, shmem, s)
-                 : launch_pass<K, W, uint8_t>(a, shmem, s);
+  const size_t shmem = PassLayout(kpb, sizeof(K), leaf_bytes, r).total;
+  return r > 256 ? launch_persistent(fused_pass_kernel<K, W, uint16_t>, a,
+                                     shmem, s)
+                 : launch_persistent(fused_pass_kernel<K, W, uint8_t>, a,
+                                     shmem, s);
+}
+
+// The zeroed scratch of the wide variant (r > 512): see wide_flags_bytes.
+extern "C" long long fused_wide_scratch_bytes(int rows, int r, int a_max) {
+  return static_cast<long long>(16 + wide_flags_bytes(rows) +
+                                sizeof(int) * static_cast<size_t>(a_max) * r);
 }
 
 // One fused pass over `rows` flat descriptor rows.  `scratch` is zeroed:
-// an int ticket, then at byte 16 one look-back word of `word_bytes` (4 or
-// 8) per (row, digit).  hist (and hist2 when lookahead) are zeroed
-// (a_max * r,) int32 outputs.
+// for r <= 512 an int ticket, then at byte 16 one look-back word of
+// `word_bytes` (4 or 8) per (row, digit); for 512 < r <= 65536 the wide
+// variant's (fused_wide_scratch_bytes).  hist (and hist2 when lookahead)
+// are zeroed (a_max * r,) int32 outputs.
 extern "C" int fused_pass_launch(
     const void* src_keys, void* dst_keys, int key_bytes,
     const void* const* val_src, void* const* val_dst, const int* val_bytes,
@@ -572,8 +825,9 @@ extern "C" int fused_pass_launch(
     int nlo, int nwidth, int n2lo, int n2width, int lookahead, int r,
     int a_max, int kpb, void* hist, void* hist2,
     void* scratch, int word_bytes, void* stream) {
-  if (r < 2 || r > 512 || num_vals < 0 || num_vals > kMaxLeaves || rows < 1 ||
-      kpb < 1 || kpb > 65536 || (word_bytes != 4 && word_bytes != 8))
+  if (r < 2 || r > 65536 || num_vals < 0 || num_vals > kMaxLeaves ||
+      rows < 1 || kpb < 1 || kpb > 65536 ||
+      (word_bytes != 4 && word_bytes != 8))
     return cudaErrorInvalidValue;
   Leaves leaves{};
   leaves.count = num_vals;
@@ -584,22 +838,21 @@ extern "C" int fused_pass_launch(
     leaves.bytes[v] = val_bytes[v];
     leaf_bytes = max(leaf_bytes, val_bytes[v]);
   }
-  const size_t shmem = PassLayout(kpb, key_bytes, leaf_bytes, r).total;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tables[5] = {blk_seg, blk_off, blk_reset, blk_count,
                           blk_active};
   const int windows[6] = {lo, width, nlo, nwidth, n2lo, n2width};
   REPRO_DISPATCH_KEY(key_bytes, K, {
     return static_cast<int>(
-        word_bytes == 4
+        word_bytes == 4 || r > 512
             ? launch_pass<K, uint32_t>(
                   src_keys, dst_keys, leaves, leaf_bytes, tables, rows,
                   base_excl, next_sid, windows, lookahead, r, a_max, kpb,
-                  hist, hist2, scratch, shmem, s)
+                  hist, hist2, scratch, s)
             : launch_pass<K, unsigned long long>(
                   src_keys, dst_keys, leaves, leaf_bytes, tables, rows,
                   base_excl, next_sid, windows, lookahead, r, a_max, kpb,
-                  hist, hist2, scratch, shmem, s));
+                  hist, hist2, scratch, s));
   })
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -160,27 +160,6 @@ __device__ void tree_merge(K* win, Slot* out, const int* s_excl, int kway,
   }
 }
 
-// Stores get(0 .. m-1) to dst[0 .. m-1]: a scalar head up to the first
-// 16-byte boundary, whole 16-byte vectors, a scalar tail.
-template <typename T, typename Get>
-__device__ __forceinline__ void store_run(T* dst, int m, Get get) {
-  constexpr int V = 16 / sizeof(T);
-  const int head = min(
-      m, static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) &
-                           15) / sizeof(T)));
-  const int nvec = (m - head) / V;
-  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = get(i);
-  uint4* vdst = reinterpret_cast<uint4*>(dst + head);
-  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-    KeyVec<T> a;
-#pragma unroll
-    for (int e = 0; e < V; ++e) a.k[e] = get(head + v * V + e);
-    vdst[v] = a.v;
-  }
-  for (int i = head + nvec * V + threadIdx.x; i < m; i += blockDim.x)
-    dst[i] = get(i);
-}
-
 template <typename T>
 __device__ __forceinline__ void copy_elem(const void* src, void* dst,
                                           long long from, long long to) {

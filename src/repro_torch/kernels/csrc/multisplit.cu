@@ -5,153 +5,213 @@
 // each output slot's digit, its rank within its digit run, and the tile's
 // (r,) histogram.  The TPU built a KPB x KPB permutation matrix per tile
 // and applied it on the MXU in exact 16-bit halves; here the result is
-// computed directly.  One CTA per tile:
-//   1. per-warp digit counts over contiguous warp slices (common.cuh's
-//      stable in-block rank, shared with csrc/fused_pass.cu);
-//   2. exclusive offsets across warps, the histogram (stored), and the run
-//      starts by a warp scan over the r digits;
-//   3. a second walk ranks every key stably within its digit and stages
-//      key, digit (and value) at run start + rank in shared memory;
-//   4. the staged digit-major tile is written out coalesced, with
-//      rank = slot - run start of its digit.
-// Keys are read twice (the second walk mostly from L2); nothing is
-// scattered to device memory.
+// computed directly, one CTA per tile.
+//
+// Bound: bytes.  Keys read once (n·kb), keys, digits and ranks written
+// (n·(kb + 4 + 4)), T·r·4 of histograms; plus 2·n·vb for values.  What held
+// the first version back on this card: the keys were read twice as scalar
+// 4-byte loads, every key went through __match_any_sync twice (its cost
+// grows with the distinct digits of a warp step), and every output was a
+// scalar 4-byte store.  So, per tile:
+//   1. the keys come into shared memory once, with 16-byte vector loads
+//      (load_row: a scalar head and tail where the tile's start is not
+//      16-byte aligned); thread 0 asks L2 for the tile's values at once;
+//   2. stable_digit_order (common.cuh, shared with the fused pass's wide
+//      variant) ranks the staged keys: per-warp digit bitmasks
+//      (warp_mask_rank), offsets across warps, one placement walk: the
+//      order is kept as a uint16 slot -> element table, the digits as one
+//      byte per slot;
+//   3. keys, digits and ranks go out in slot order as 16-byte streaming
+//      stores (the outputs are not re-read), rank = slot - the digit's
+//      first slot;
+//   4. the values then pass through the same staging buffer: one vector
+//      read into shared memory, gathered through the order, 16-byte stores.
+// At KPB 6912 with 4-byte keys and values that is 96 KB of shared memory,
+// two CTAs of 512 threads per SM.
+//
+// Widths 9..16: two stable 8-bit counting rounds (the digit's low byte,
+// then its high bits) give the order; the digits are kept as uint16; each
+// slot's run start comes from a scan of the slots where the digit changes
+// (run_starts), and the sparse histogram row (one entry per run) is written
+// into the zeroed output.  Widths past 16 are refused (digit_at).
 //
 // The reference rebuilt keys and values from ceil(bits / 16) 16-bit halves,
 // so only their low 16 * ceil(key_bits / 16) (val_bits) bits survive: the
 // wrapper passes those masks.  Digits use the key dtype's own shift.
-//
-// Bound: bytes.  Keys read once (n·kb), keys, digits and ranks written
-// (n·(kb + 4 + 4)), T·r·4 of histograms; plus 2·n·vb for values.
-// KPB·(kb + vb + 1) + 68·r bytes of shared memory must fit 227 KB.
 #include "common.cuh"
 
 constexpr int kSplitThreads = 512;
 constexpr int kSplitWarps = kSplitThreads / 32;
+// the phases a launch runs (tile_multisplit_probe times them apart); the
+// tile is always loaded.  A runtime argument on purpose: as a template
+// parameter, the shipped kernel free of the identity-order branch, ptxas
+// scheduled the keys kernel differently, and it took 2.56-2.62 ms in place
+// of 2.26-2.32 at the library phase's shape (scripts/
+// torch_checkout_times.py multisplit, both forms alternating in one call
+// on an H100 80GB HBM3 at 700 W).  Fences, barriers, unrolling and launch
+// bounds did not bring it back; the runtime rank branch does.
+constexpr int kRankPhase = 1, kWritePhase = 2;
+constexpr int kAllPhases = kRankPhase | kWritePhase;
 
-__host__ __device__ inline size_t split_align(size_t bytes) {
-  return (bytes + 7) / 8 * 8;
+__host__ __device__ constexpr size_t split_align(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
 }
 
-template <typename K, typename V, bool KV>
-__global__ void __launch_bounds__(kSplitThreads)
+// Byte offsets of one CTA's shared memory: the staging buffer (keys, then
+// values), the slot -> element order, the rank scratch, the staged digits,
+// the run starts (widths past 8), the per-warp counts and digit bitmasks,
+// the bins and their starts.
+struct SplitLayout {
+  size_t order, tmp, sdig, rstart, wcnt, masks, bins, total;
+  __host__ __device__ SplitLayout(int kpb, int key_bytes, int val_bytes,
+                                  int width) {
+    const size_t k = static_cast<size_t>(kpb);
+    const bool wide = width > 8;
+    order = split_align(k * (key_bytes > val_bytes ? key_bytes : val_bytes));
+    tmp = order + split_align(2 * k);
+    sdig = tmp + split_align(2 * k);
+    rstart = sdig + split_align(k * (wide ? 2 : 1));
+    wcnt = rstart + (wide ? split_align(2 * k) : 0);
+    masks = wcnt + sizeof(int) * kSplitWarps * kRoundBins;
+    bins = masks + sizeof(unsigned) * kSplitWarps * kRoundBins;
+    total = bins + sizeof(int) * 2 * kRoundBins;
+  }
+};
+
+template <typename K, typename V, bool KV, typename D>
+__global__ void __launch_bounds__(kSplitThreads, 2)
 multisplit_kernel(const K* __restrict__ keys, const V* __restrict__ vals,
                   K* __restrict__ out_keys, V* __restrict__ out_vals,
                   int* __restrict__ out_digit, int* __restrict__ out_rank,
                   int* __restrict__ out_hist, int kpb, int shift, int width,
-                  int logical, K key_mask, V val_mask) {
-  extern __shared__ unsigned long long smem_raw[];
-  unsigned char* at = reinterpret_cast<unsigned char*>(smem_raw);
-  K* sk = reinterpret_cast<K*>(at);                      // (kpb,) staged keys
-  at += split_align(sizeof(K) * kpb);
-  V* sv = reinterpret_cast<V*>(at);                      // (kpb,) staged vals
-  if (KV) at += split_align(sizeof(V) * kpb);
-  int* wcnt = reinterpret_cast<int*>(at);                // (warps, r)
-  const int r = 1 << width;
-  int* run = wcnt + kSplitWarps * r;                     // (r,) run starts
-  uint8_t* sd = reinterpret_cast<uint8_t*>(run + r);     // (kpb,) digits
+                  int logical, K key_mask, V val_mask, int phases) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SplitLayout lay(kpb, sizeof(K), KV ? sizeof(V) : 0, width);
+  K* skeys = reinterpret_cast<K*>(smem);                   // (kpb,) keys
+  V* svals = reinterpret_cast<V*>(smem);                   // then values
+  auto* order = reinterpret_cast<unsigned short*>(smem + lay.order);
+  auto* tmp = reinterpret_cast<unsigned short*>(smem + lay.tmp);
+  D* sdig = reinterpret_cast<D*>(smem + lay.sdig);
+  auto* rstart = reinterpret_cast<unsigned short*>(smem + lay.rstart);
+  int* wcnt = reinterpret_cast<int*>(smem + lay.wcnt);
+  auto* masks = reinterpret_cast<unsigned*>(smem + lay.masks);
+  int* bins = reinterpret_cast<int*>(smem + lay.bins);     // (256,)
+  int* bexcl = bins + kRoundBins;                          // (256,)
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const long long base = static_cast<long long>(blockIdx.x) * kpb;
-  for (int i = tid; i < kSplitWarps * r; i += blockDim.x) wcnt[i] = 0;
+  const bool wide = width > 8;
+  if constexpr (KV)     // the values are read last: have L2 fetch them now
+    if (tid == 0)
+      prefetch_l2(vals, base * sizeof(V), (base + kpb) * sizeof(V));
+  for (int i = tid; i < kSplitWarps * kRoundBins; i += blockDim.x)
+    masks[i] = 0;
+  load_row<K>(keys + base, kpb, skeys);
   __syncthreads();
 
-  // 1. per-warp digit counts over the warp's contiguous slice
-  const int per = warp_slice_per(kpb, kSplitWarps);
-  const int wbeg = warp * per;
-  const int wend = min(wbeg + per, kpb);
-  int* mine = wcnt + warp * r;
-  for (int b = wbeg; b < wend; b += 32) {
-    const int i = b + lane;
-    const bool valid = i < wend;
-    const unsigned d =
-        valid ? digit_at(keys[base + i], shift, width, logical) : 0u;
-    warp_count_step(mine, d, valid, lane);
+  // 1. the stable digit-major order of the tile
+  auto digit = [&](int i) {
+    return digit_at(skeys[i], shift, width, logical != 0);
+  };
+  if (phases & kRankPhase) {
+    stable_digit_order<kSplitWarps>(kpb, width, digit, order, tmp, sdig,
+                                    wcnt, masks, bins, bexcl);
+  } else {   // the probe's write-only phase: the identity order
+    for (int s = tid; s < kpb; s += blockDim.x) {
+      order[s] = static_cast<unsigned short>(s);
+      sdig[s] = 0;
+      if (wide) rstart[s] = 0;
+    }
+    for (int b = tid; b < kRoundBins; b += blockDim.x) bexcl[b] = 0;
+    __syncthreads();
   }
-  __syncthreads();
+  if (!(phases & kWritePhase)) return;
 
-  // 2. offsets across warps; histogram and run starts (warp 0 scans the
-  //    r digit counts, each lane a contiguous range of them)
-  warps_exclusive(wcnt, kSplitWarps, r, run);
-  __syncthreads();
-  if (warp == 0) {
-    const int each = (r + 31) / 32;                 // digits per lane
-    const int d0 = min(lane * each, r), d1 = min(d0 + each, r);
-    int own = 0;
-    for (int d = d0; d < d1; ++d) own += run[d];
-    int incl = own;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int up = __shfl_up_sync(kFullMask, incl, o);
-      if (lane >= o) incl += up;
+  // 2. the histogram row and each slot's run start
+  const int r = 1 << width;
+  int* hist = out_hist + static_cast<long long>(blockIdx.x) * r;
+  if (!wide) {
+    for (int d = tid; d < r; d += blockDim.x) hist[d] = bins[d];
+  } else {
+    if (phases & kRankPhase) {
+      run_starts(sdig, kpb, rstart, bins);
+      __syncthreads();
     }
-    int acc = incl - own;
-    int* hist = out_hist + static_cast<long long>(blockIdx.x) * r;
-    for (int d = d0; d < d1; ++d) {
-      const int c = run[d];
-      hist[d] = c;
-      run[d] = acc;
-      acc += c;
-    }
+    for (int s = tid; s < kpb; s += blockDim.x)   // one entry per run
+      if (s == kpb - 1 || sdig[s + 1] != sdig[s])
+        hist[sdig[s]] = s + 1 - rstart[s];
   }
-  __syncthreads();
 
-  // 3. stable rank within the digit; stage the tile digit-major
-  for (int b = wbeg; b < wend; b += 32) {
-    const int i = b + lane;
-    const bool valid = i < wend;
-    K key = 0;
-    unsigned d = 0;
-    if (valid) {
-      key = keys[base + i];
-      d = digit_at(key, shift, width, logical);
-    }
-    const int rank = warp_rank_step(mine, d, valid, lane);
-    if (valid) {
-      const int dest = run[d] + rank;
-      sk[dest] = static_cast<K>(key & key_mask);
-      sd[dest] = static_cast<uint8_t>(d);
-      if (KV) sv[dest] = static_cast<V>(vals[base + i] & val_mask);
-    }
-  }
-  __syncthreads();
+  // 3. keys, digits and ranks in slot order, 16-byte streaming stores (the
+  //    digit and rank outputs share their alignment: one walk, one read of
+  //    each slot's digit)
+  store_run<K, true>(out_keys + base, kpb, [&](int s) {
+    return static_cast<K>(skeys[order[s]] & key_mask);
+  });
+  store_pair<true>(out_digit + base, out_rank + base, kpb, [&](int s) {
+    const int d = sdig[s];
+    return int2{d, s - (wide ? static_cast<int>(rstart[s]) : bexcl[d])};
+  });
 
-  // 4. coalesced write of the digit-major tile
-  for (int j = tid; j < kpb; j += blockDim.x) {
-    const int d = sd[j];
-    out_keys[base + j] = sk[j];
-    out_digit[base + j] = d;
-    out_rank[base + j] = j - run[d];
-    if (KV) out_vals[base + j] = sv[j];
+  // 4. the values through the same staging buffer
+  if constexpr (KV) {
+    __syncthreads();   // the keys' last readers are done
+    load_row<V>(vals + base, kpb, svals);
+    __syncthreads();
+    store_run<V, true>(out_vals + base, kpb, [&](int s) {
+      return static_cast<V>(svals[order[s]] & val_mask);
+    });
   }
 }
 
 REPRO_ERROR_STRING
 
-constexpr size_t kSplitSmemLimit = 232448;
-
-template <typename K, typename V, bool KV>
+// A tile over the card's opt-in shared memory per CTA (227 KB on the H100)
+// is refused with cudaErrorInvalidValue (the wrapper names the limit).
+template <typename K, typename V, bool KV, typename D>
 static int launch_split(const void* keys, const void* vals, void* out_keys,
                         void* out_vals, int* out_digit, int* out_rank,
                         int* out_hist, int tiles, int kpb, int shift,
                         int width, int logical, unsigned long long key_mask,
-                        unsigned long long val_mask, cudaStream_t s) {
-  const int r = 1 << width;
-  const size_t shmem = split_align(sizeof(K) * kpb) +
-                       (KV ? split_align(sizeof(V) * kpb) : 0) +
-                       sizeof(int) * (kSplitWarps + 1) * r + kpb;
-  if (shmem > kSplitSmemLimit) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      multisplit_kernel<K, V, KV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+                        unsigned long long val_mask, int phases,
+                        cudaStream_t s) {
+  const size_t shmem =
+      SplitLayout(kpb, sizeof(K), KV ? sizeof(V) : 0, width).total;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  multisplit_kernel<K, V, KV><<<tiles, kSplitThreads, shmem, s>>>(
+  if (shmem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(multisplit_kernel<K, V, KV, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(shmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  multisplit_kernel<K, V, KV, D><<<tiles, kSplitThreads, shmem, s>>>(
       static_cast<const K*>(keys), static_cast<const V*>(vals),
       static_cast<K*>(out_keys), static_cast<V*>(out_vals), out_digit,
       out_rank, out_hist, kpb, shift, width, logical,
-      static_cast<K>(key_mask), static_cast<V>(val_mask));
+      static_cast<K>(key_mask), static_cast<V>(val_mask), phases);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K, typename V, bool KV>
+static int split_by_width(const void* keys, const void* vals, void* out_keys,
+                          void* out_vals, int* out_digit, int* out_rank,
+                          int* out_hist, int tiles, int kpb, int shift,
+                          int width, int logical, unsigned long long key_mask,
+                          unsigned long long val_mask, int phases,
+                          cudaStream_t s) {
+  // one staged digit byte up to width 8; 16-bit digits (and two rounds)
+  // past it
+  return width > 8
+      ? launch_split<K, V, KV, uint16_t>(
+            keys, vals, out_keys, out_vals, out_digit, out_rank, out_hist,
+            tiles, kpb, shift, width, logical, key_mask, val_mask, phases, s)
+      : launch_split<K, V, KV, uint8_t>(
+            keys, vals, out_keys, out_vals, out_digit, out_rank, out_hist,
+            tiles, kpb, shift, width, logical, key_mask, val_mask, phases, s);
 }
 
 template <typename K>
@@ -160,33 +220,38 @@ static int split_by_value(int val_bytes, const void* keys, const void* vals,
                           int* out_rank, int* out_hist, int tiles, int kpb,
                           int shift, int width, int logical,
                           unsigned long long key_mask,
-                          unsigned long long val_mask, cudaStream_t s) {
+                          unsigned long long val_mask, int phases,
+                          cudaStream_t s) {
   switch (val_bytes) {
-    case 0: return launch_split<K, uint8_t, false>(
+    case 0: return split_by_width<K, uint8_t, false>(
                 keys, vals, out_keys, out_vals, out_digit, out_rank, out_hist,
-                tiles, kpb, shift, width, logical, key_mask, val_mask, s);
-    case 2: return launch_split<K, uint16_t, true>(
+                tiles, kpb, shift, width, logical, key_mask, val_mask, phases,
+                s);
+    case 2: return split_by_width<K, uint16_t, true>(
                 keys, vals, out_keys, out_vals, out_digit, out_rank, out_hist,
-                tiles, kpb, shift, width, logical, key_mask, val_mask, s);
-    case 4: return launch_split<K, uint32_t, true>(
+                tiles, kpb, shift, width, logical, key_mask, val_mask, phases,
+                s);
+    case 4: return split_by_width<K, uint32_t, true>(
                 keys, vals, out_keys, out_vals, out_digit, out_rank, out_hist,
-                tiles, kpb, shift, width, logical, key_mask, val_mask, s);
-    case 8: return launch_split<K, unsigned long long, true>(
+                tiles, kpb, shift, width, logical, key_mask, val_mask, phases,
+                s);
+    case 8: return split_by_width<K, unsigned long long, true>(
                 keys, vals, out_keys, out_vals, out_digit, out_rank, out_hist,
-                tiles, kpb, shift, width, logical, key_mask, val_mask, s);
+                tiles, kpb, shift, width, logical, key_mask, val_mask, phases,
+                s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// (tiles, kpb) keys [and values] -> digit-major keys [values], digits,
-// ranks (tiles, kpb) and histograms (tiles, 2^width).  val_bytes 0: keys
-// only (vals, out_vals null).  Keys of 2, 4 or 8 bytes.
-extern "C" int tile_multisplit_launch(
-    const void* keys, const void* vals, void* out_keys, void* out_vals,
-    void* out_digit, void* out_rank, void* out_hist, int key_bytes,
-    int val_bytes, int tiles, int kpb, int shift, int width, int logical,
-    unsigned long long key_mask, unsigned long long val_mask, void* stream) {
-  if (width < 1 || width > 8 || tiles < 1 || kpb < 1 || key_bytes == 1)
+static int split_launch(const void* keys, const void* vals, void* out_keys,
+                        void* out_vals, void* out_digit, void* out_rank,
+                        void* out_hist, int key_bytes, int val_bytes,
+                        int tiles, int kpb, int shift, int width, int logical,
+                        unsigned long long key_mask,
+                        unsigned long long val_mask, int phases,
+                        void* stream) {
+  if (width < 1 || width > 16 || tiles < 1 || kpb < 1 || kpb > 65536 ||
+      key_bytes == 1 || phases < 0 || phases > kAllPhases)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* dg = static_cast<int*>(out_digit);
@@ -195,6 +260,35 @@ extern "C" int tile_multisplit_launch(
   REPRO_DISPATCH_KEY(key_bytes, K,
     return split_by_value<K>(val_bytes, keys, vals, out_keys, out_vals, dg,
                              rk, hs, tiles, kpb, shift, width, logical,
-                             key_mask, val_mask, s))
+                             key_mask, val_mask, phases, s))
   return cudaErrorInvalidValue;
+}
+
+// (tiles, kpb) keys [and values] -> digit-major keys [values], digits,
+// ranks (tiles, kpb) and histograms (tiles, 2^width), the histograms
+// zeroed by the caller.  val_bytes 0: keys only (vals, out_vals null).
+// Keys of 2, 4 or 8 bytes; widths 1..16; kpb <= 65536.
+extern "C" int tile_multisplit_launch(
+    const void* keys, const void* vals, void* out_keys, void* out_vals,
+    void* out_digit, void* out_rank, void* out_hist, int key_bytes,
+    int val_bytes, int tiles, int kpb, int shift, int width, int logical,
+    unsigned long long key_mask, unsigned long long val_mask, void* stream) {
+  return split_launch(keys, vals, out_keys, out_vals, out_digit, out_rank,
+                      out_hist, key_bytes, val_bytes, tiles, kpb, shift,
+                      width, logical, key_mask, val_mask, kAllPhases, stream);
+}
+
+// The same launch with only some phases (the load always): 0 load only,
+// kRankPhase load and rank, kWritePhase load and the writes of an identity
+// order.  For timing only (scripts/torch_multisplit_breakdown.py): the
+// outputs of a partial launch are not the multisplit's.
+extern "C" int tile_multisplit_probe(
+    const void* keys, const void* vals, void* out_keys, void* out_vals,
+    void* out_digit, void* out_rank, void* out_hist, int key_bytes,
+    int val_bytes, int tiles, int kpb, int shift, int width, int logical,
+    unsigned long long key_mask, unsigned long long val_mask, int phases,
+    void* stream) {
+  return split_launch(keys, vals, out_keys, out_vals, out_digit, out_rank,
+                      out_hist, key_bytes, val_bytes, tiles, kpb, shift,
+                      width, logical, key_mask, val_mask, phases, stream);
 }

@@ -8,14 +8,17 @@ of the keys per pass (§4.3–§4.4).  On a CUDA tensor it launches
 ``csrc/fused_pass.cu`` (persistent CTAs take the flat descriptor rows by
 ticket: stable in-row rank, in-segment carries by decoupled look-back over
 packed status words, the row staged digit-major in shared memory and
-written out in runs; see the source note); on a CPU tensor it runs the
-plain version in ``ref.py``.
+written out in runs; past r = 512 its wide variant: two 8-bit counting
+rounds per row and a sequential in-segment carry; see the source note); on
+a CPU tensor it runs the plain version in ``ref.py``.
 The alternate buffers are written in place and returned, which takes the
 place of the reference's donation.
 
-The host-side sizing is plain Python: ``lookback_word_bytes`` (the
-look-back word's width from n) and ``lookback_scratch_bytes``.  A KPB whose
-row does not fit one CTA's shared memory is refused by the launch.
+The host-side sizing of the r <= 512 kernel is plain Python:
+``lookback_word_bytes`` (the look-back word's width from n) and
+``lookback_scratch_bytes``; the wide variant's scratch size comes from the
+C side (``fused_wide_scratch_bytes``).  A KPB whose row does not fit one
+CTA's shared memory is refused by the launch.
 """
 from __future__ import annotations
 
@@ -28,8 +31,10 @@ from repro_torch.kernels.histogram import digit_total
 
 #: value leaves one launch carries (the C side's pointer table)
 MAX_LEAVES = 8
-#: the widest digit histogram the CUDA pass takes: d <= 9
-MAX_RADIX = 512
+#: the widest digit histogram the CUDA pass takes: d <= 16
+MAX_RADIX = 65536
+#: the widest r of the look-back kernel; past it the wide variant runs
+LOOKBACK_MAX_RADIX = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +52,16 @@ def lookback_scratch_bytes(rows: int, r: int, n: int) -> int:
     """The zeroed scratch of one launch: a 16-byte ticket slot, then one
     look-back word per (row, digit)."""
     return 16 + rows * r * lookback_word_bytes(n)
+
+
+def scratch_bytes(rows: int, r: int, a_max: int, n: int) -> int:
+    """The zeroed scratch of one CUDA launch: the look-back words, or past
+    r = 512 the wide variant's flags and (a_max, r) carry table (sized by
+    ``csrc/fused_pass.cu``)."""
+    if r <= LOOKBACK_MAX_RADIX:
+        return lookback_scratch_bytes(rows, r, n)
+    return _build.function("fused_pass", "fused_wide_scratch_bytes",
+                           [_I, _I, _I], ctypes.c_longlong)(rows, r, a_max)
 
 
 def pad_length(n: int, kpb: int) -> int:
@@ -88,7 +103,7 @@ def initial_histogram(buf_keys: torch.Tensor, n: int, lo: int, width: int,
 def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
             next_sid, kpb, r, a_max, n, lookahead):
     if r > MAX_RADIX:
-        raise ValueError(f"the CUDA fused pass supports d <= 9 (r <= "
+        raise ValueError(f"the CUDA fused pass supports d <= 16 (r <= "
                          f"{MAX_RADIX}), got r = {r}")
     if len(src_vals) > MAX_LEAVES:
         raise ValueError(f"at most {MAX_LEAVES} value leaves per launch")
@@ -105,8 +120,8 @@ def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
     rows = tables[0].shape[0]
     hist = torch.zeros(a_max * r, dtype=torch.int32, device=dev)
     hist2 = torch.zeros_like(hist) if lookahead else None
-    scratch = torch.zeros(lookback_scratch_bytes(rows, r, n),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.zeros(scratch_bytes(rows, r, a_max, n), dtype=torch.uint8,
+                          device=dev)
     nv = len(src_vals)
     val_src = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in src_vals])
     val_dst = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in alt_vals])

@@ -3,10 +3,12 @@
 
 On a CUDA tensor the wrappers launch ``csrc/histogram.cu`` (16-byte
 vector loads, per-warp shared sub-histograms with plain atomics, runs of
-equal digits merged in registers: the paper's Fig. 2 fix for skew); on a
-CPU tensor they run the plain version in ``ref.py``.  Keys are any integer
-dtype; digits use the dtype's own shift (logical for unsigned keys).  Digit
-widths 1..9 on the card (the assigned histogram's 1..8).
+equal digits merged in registers: the paper's Fig. 2 fix for skew; past
+9 bits one shared table per CTA; past 14 global atomics into rows, and a
+total split into parts of 2^14 bins); on a CPU tensor they run the plain
+version in ``ref.py``.  Keys are any integer dtype; digits use the dtype's
+own shift (logical for unsigned keys).  Digit widths 1..16 on the card, as
+in the reference's ``SortConfig``.
 
 The host-side sizing is plain Python: ``aligned_split`` (the scalar head,
 16-byte body and scalar tail of a range) and ``total_grid`` (the prologue's
@@ -58,14 +60,14 @@ def sm_count(device) -> int:
     return _SMS[idx]
 
 
-#: the widest digit of the CUDA histogram (d <= 9, r <= 512)
-MAX_WIDTH = 9
+#: the widest digit of the CUDA kernels (``digit_at`` takes 16 bits)
+MAX_WIDTH = 16
 
 
-def check_width(width: int, limit: int = MAX_WIDTH) -> None:
-    if not 1 <= width <= limit:
-        raise ValueError(f"the CUDA histogram supports digit widths "
-                         f"1..{limit}, got {width}")
+def check_width(width: int) -> None:
+    if not 1 <= width <= MAX_WIDTH:
+        raise ValueError(f"the CUDA kernels support digit widths "
+                         f"1..{MAX_WIDTH}, got {width}")
 
 
 def _launch(keys, n, chunk, grid, shift, width, out, accumulate,

@@ -445,19 +445,29 @@ def sort_segments_ref(buf: torch.Tensor, perm, starts: torch.Tensor,
 
 def merge_rows_ref(hist: torch.Tensor, local_threshold: int,
                    merge_threshold: int):
-    """R3 over each (A, r) row: (group_start, group_done) bool tables."""
+    """R3 over each (A, r) row: (group_start, group_done) bool tables.
+
+    A sub-bucket of size 0 extends its group and leaves the running sum as
+    it is, so the walk visits only the columns where some row is non-zero
+    (all of them on dense tables; a few thousand of 65 536 at d = 16 on
+    small inputs) and fills the rest as (False, True)."""
+    cols = torch.nonzero(hist.any(0)).flatten()
+    sizes = hist[:, cols].t().contiguous()
     acc = torch.full((hist.shape[0],), merge_threshold, dtype=torch.int32,
                      device=hist.device)
-    gstart = torch.empty(hist.shape, dtype=torch.bool, device=hist.device)
-    gdone = torch.empty_like(gstart)
-    for v in range(hist.shape[1]):
-        s = hist[:, v]
+    starts, dones = [], []
+    for s in sizes:
         big = s > local_threshold
         extend = (s == 0) | (~big & (acc + s < merge_threshold))
         acc = torch.where(extend, acc + s,
                           torch.where(big, merge_threshold, s))
-        gstart[:, v] = ~extend
-        gdone[:, v] = ~big
+        starts.append(~extend)
+        dones.append(~big)
+    gstart = torch.zeros(hist.shape, dtype=torch.bool, device=hist.device)
+    gdone = torch.ones_like(gstart)
+    if starts:
+        gstart[:, cols] = torch.stack(starts, 1)
+        gdone[:, cols] = torch.stack(dones, 1)
     return gstart, gdone
 
 

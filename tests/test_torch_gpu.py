@@ -423,24 +423,125 @@ def test_tile_histogram_pass_on_card_equals_cpu(dev):
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
-def test_library_kernels_refuse_widths_above_8(dev):
+@pytest.mark.parametrize("width", range(9, 17))
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int64], ids=str)
+def test_library_kernels_widths_9_to_16_equal_plain(dev, width, dtype):
+    """The multisplit (keys and KV: two 8-bit rounds, 16-bit digits, run
+    starts from the digit changes, sparse histogram rows), the assigned
+    histogram (one shared table up to 14 bits, global atomics past it) and
+    the histogram rows at widths 9..16, against their plain versions."""
+    from repro_torch.kernels import assigned, histogram, multisplit, ref
+    rng = np.random.default_rng(width)
+    keys = _rows_input(rng, (24, 6912), dtype).to(dev)
+    keys[5] = keys[5, :1]                       # one all-equal tile
+    bits = 8 * keys.element_size()
+    shift = bits - width - 2
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=dev).reshape(keys.shape)
+    got = multisplit.tile_multisplit(keys, shift, width, bits)
+    want = ref.tile_multisplit_kv_ref(keys, None, shift, width, bits)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    got = multisplit.tile_multisplit_kv(keys, vals, shift, width, bits, 32)
+    want = ref.tile_multisplit_kv_ref(keys, vals, shift, width, bits, 32)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    tile_idx = torch.tensor([3, 5, 0, -1, 40, 23, 7], dtype=torch.int32,
+                            device=dev)
+    valid = torch.tensor([1, 2, 1, -3, 1, 0, 1], dtype=torch.int32,
+                         device=dev)
+    assert torch.equal(
+        assigned.assigned_histogram(keys, tile_idx, valid, shift, width),
+        ref.assigned_histogram_ref(keys, tile_idx, valid, shift, width))
+    assert torch.equal(histogram.radix_histogram(keys, shift, width),
+                       ref.radix_histogram_ref(keys, shift, width))
+
+
+def test_multisplit_refuses_a_tile_over_shared_memory(dev):
+    """A tile whose staging buffer does not fit one CTA is refused by the
+    launch, with the limit named."""
+    from repro_torch.kernels import multisplit
+    keys = torch.zeros((1, 32768), dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        multisplit.tile_multisplit_kv(keys, keys.clone(), 0, 8, 64, 64)
+
+
+def test_library_kernels_refuse_width_17(dev):
+    """digit_at takes at most 16 bits: every kernel refuses width 17."""
     from repro_torch.kernels import assigned, histogram, multisplit
     keys = torch.zeros((2, 256), dtype=torch.int32, device=dev)
     idx = torch.zeros(2, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="widths 1..8"):
-        multisplit.tile_multisplit(keys, 0, 9, 32)
-    with pytest.raises(ValueError, match="widths 1..8"):
-        assigned.assigned_histogram(keys, idx, idx, 0, 9)
-    with pytest.raises(ValueError, match="widths 1..9"):
-        histogram.radix_histogram(keys, 0, 10)
+    with pytest.raises(ValueError, match="widths 1..16"):
+        multisplit.tile_multisplit(keys, 0, 17, 32)
+    with pytest.raises(ValueError, match="widths 1..16"):
+        assigned.assigned_histogram(keys, idx, idx, 0, 17)
+    with pytest.raises(ValueError, match="widths 1..16"):
+        histogram.radix_histogram(keys, 0, 17)
 
 
-def test_hybrid_sort_refuses_digits_above_9_bits(dev):
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64], ids=str)
+@pytest.mark.parametrize("kpb", [6911, 6910, 6912])
+def test_multisplit_kernel_unaligned_tiles_equal_plain(dev, dtype, kpb):
+    """Width 8 on tiles whose starts are not 16-byte aligned (KPB 6911 and
+    6910 with 4-byte keys, every row start shifted; a view one key in), so
+    the vector loads' and stores' scalar heads and tails run."""
+    from repro_torch.kernels import multisplit, ref
+    rng = np.random.default_rng(kpb)
+    flat = _rows_input(rng, (30 * kpb + 1,), dtype).to(dev)
+    vals = torch.arange(30 * kpb + 1, dtype=torch.int32, device=dev)
+    bits = 8 * flat.element_size()
+    for k, v in ((flat[:-1], vals[:-1]), (flat[1:], vals[1:])):
+        keys, vk = k.view(30, kpb), v.view(30, kpb)
+        got = multisplit.tile_multisplit(keys, bits - 8, 8, bits)
+        want = ref.tile_multisplit_kv_ref(keys, None, bits - 8, 8, bits)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))
+        got = multisplit.tile_multisplit_kv(keys, vk, bits - 11, 8, bits, 32)
+        want = ref.tile_multisplit_kv_ref(keys, vk, bits - 11, 8, bits, 32)
+        assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", ["all_equal", "distinct"])
+def test_multisplit_kernel_16bit_edge_tiles_equal_plain(dev, case):
+    """Width 16: an all-equal tile (one run) and a tile of 6912 distinct
+    digits (6912 runs of one key), keys and KV."""
+    from repro_torch.kernels import multisplit, ref
+    rng = np.random.default_rng(16)
+    if case == "all_equal":
+        x = np.full((3, 6912), 0xBEEF1234, np.uint32)
+    else:
+        x = np.stack([rng.permutation(65536)[:6912].astype(np.uint32) << 8
+                      for _ in range(3)])
+    keys = torch.from_numpy(x).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device=dev).reshape(keys.shape)
+    got = multisplit.tile_multisplit_kv(keys, vals, 8, 16, 32, 32)
+    want = ref.tile_multisplit_kv_ref(keys, vals, 8, 16, 32, 32)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    if case == "distinct":
+        assert bool((got[3] == 0).all())           # every run one key long
+
+
+@pytest.mark.parametrize("d", [10, 12, 16])
+@pytest.mark.parametrize("ands", [0, 3])
+def test_hybrid_sort_wide_digits_on_card_equals_cpu(dev, d, ands):
+    """d = 10..16 through the fused pass's wide variant and the wide
+    histogram: keys, values and stats equal to the plain versions' run on
+    the CPU, one histogram and one fused launch per executed pass."""
     from repro_torch import SortConfig, hybrid_sort
-    cfg = SortConfig(d=10, kpb=256, local_threshold=300, merge_threshold=200)
-    keys = torch.zeros(1000, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="d <= 9"):
-        hybrid_sort(keys, cfg=cfg)
+    from repro_torch.kernels import COUNTS, reset_counts
+    cfg = SortConfig(d=d, kpb=384, local_threshold=30, merge_threshold=20)
+    rng = np.random.default_rng(d)
+    x = _keys(rng, 20000, ands)
+    vals = np.arange(x.size, dtype=np.int32)
+    reset_counts()
+    got_k, got_v, got_s = hybrid_sort(x, vals, cfg=cfg, return_stats=True)
+    torch.cuda.synchronize()
+    assert COUNTS["histogram"] == 1
+    assert COUNTS["fused_pass"] == got_s.counting_passes >= 1 + (ands > 0)
+    want_k, want_v, want_s = hybrid_sort(x, vals, cfg=cfg, engine="kernel",
+                                         return_stats=True, device="cpu")
+    assert got_k.cpu().numpy().tobytes() == want_k.numpy().tobytes()
+    assert torch.equal(got_v.cpu(), want_v)
+    assert tuple(got_s) == tuple(want_s)
+    assert got_k.cpu().numpy().tobytes() == np.sort(x).tobytes()
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.int64])
@@ -499,6 +600,34 @@ _KEY_DTYPES = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 def _carrier(a):
     """numpy unsigned keys -> the carrier tensor (signed twin, same bits)."""
     return torch.from_numpy(a.view(np.dtype(f"i{a.dtype.itemsize}")))
+
+
+@pytest.mark.parametrize("key_bytes", [2, 4, 8])
+@pytest.mark.parametrize("keys", ["uniform", "all_equal"])
+def test_histogram_wide_digits_equal_plain(dev, key_bytes, keys):
+    """Widths 10..16 in both modes: one shared table per CTA up to 14
+    bits; past it global atomics into the rows (zeroed by their CTA) and,
+    for the total, bins split into parts of 2^14 with a shared table each;
+    on aligned and unaligned views."""
+    from repro_torch.kernels import histogram, ref
+    rng = np.random.default_rng(160 + key_bytes)
+    bits = 8 * key_bytes
+    x = rng.integers(0, 2**bits, 70001, dtype=_KEY_DTYPES[key_bytes])
+    if keys == "all_equal":
+        x[:] = x[0]
+    t = _carrier(x).to(dev)
+    for width in range(10, 17):
+        if width > bits:
+            continue
+        shift = bits - width
+        for view, n in ((t, t.numel()), (t[1:], 4097), (t[3:], 17)):
+            got = histogram.digit_total(view, n, shift, width)
+            want = ref.radix_histogram_ref(view[:n].reshape(1, -1), shift,
+                                           width)[0]
+            assert torch.equal(got, want), (width, n)
+        tiles = t[:103 * 679].reshape(-1, 103)
+        assert torch.equal(histogram.radix_histogram(tiles, shift, width),
+                           ref.radix_histogram_ref(tiles, shift, width))
 
 
 @pytest.mark.parametrize("key_bytes", [1, 2, 4, 8])
@@ -592,7 +721,7 @@ def _assert_pass_bytes_equal(got, want, n):
 
 
 @pytest.mark.parametrize("key_bytes", [1, 2, 4, 8])
-@pytest.mark.parametrize("d", [1, 3, 5, 8, 9])
+@pytest.mark.parametrize("d", [1, 3, 5, 8, 9, 10, 12, 16])
 def test_fused_kernel_widths_equal_plain(dev, key_bytes, d):
     """Key widths 1-8 bytes, digit widths, unaligned row starts (segments
     at odd offsets), gaps copied through, 8 value leaves of mixed widths,
@@ -747,6 +876,39 @@ def test_fused_kernel_512_digits_at_table3_kpb(dev, key_bytes):
             got = _run_pass(fused.fused_counting_pass, inp, lookahead)
             torch.cuda.synchronize()
             _assert_pass_bytes_equal(got, want, n)
+
+
+@pytest.mark.parametrize("d", [12, 16])
+@pytest.mark.parametrize("case", ["all_equal", "later_pass", "last_pass",
+                                  "one_region"])
+def test_fused_wide_kernel_cases_equal_plain(dev, d, case):
+    """The wide variant (r > 512): all-equal keys (one run per row, one
+    next-pass atomic per warp step), a later pass (many short regions), the
+    last pass (at d = 12 8 bits wide: one counting round), and one region
+    of 38 rows of 8-byte keys at KPB 6912 starting off a 16-byte boundary
+    (a carry chain), with value leaves."""
+    from repro_torch.kernels import fused, ref
+    rng = np.random.default_rng(d + len(case))
+    n = 1 << 18
+    if case == "all_equal":
+        inp = _pass_inputs(dev, rng, n, 4, d, 0, [(0, n)], 2, 6912, 1,
+                           all_equal=True)
+    elif case == "later_pass":
+        cuts = np.sort(rng.choice(np.arange(1, n), 300, replace=False))
+        edges = np.concatenate([[0], cuts, [n]])
+        bounds = [(int(a), int(b - a)) for a, b in zip(edges[:-1], edges[1:])
+                  if b - a > 40][:200]
+        inp = _pass_inputs(dev, rng, n, 4, d, 1, bounds, 256, 6912, 2)
+    elif case == "last_pass":
+        inp = _pass_inputs(dev, rng, n, 4, d, 31 // d, [(5, n - 9)], 3,
+                           6912, 1)
+    else:
+        inp = _pass_inputs(dev, rng, n, 8, d, 0, [(3, n - 3)], 2, 6912, 3)
+    for lookahead in (False, True):
+        want = _run_pass(ref.fused_counting_pass_ref, inp, lookahead)
+        got = _run_pass(fused.fused_counting_pass, inp, lookahead)
+        torch.cuda.synchronize()
+        _assert_pass_bytes_equal(got, want, n)
 
 
 def test_fused_kernel_refuses_rows_over_shared_memory(dev):

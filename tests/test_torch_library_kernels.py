@@ -383,6 +383,26 @@ def test_multisplit_kv_plain_equals_kernel(rng, vdtype, val_bits):
     _same(got, want)
 
 
+@pytest.mark.parametrize("width", [9, 12, 16])
+@pytest.mark.parametrize("dtype", [np.uint32, np.int64],
+                         ids=lambda d: np.dtype(d).name)
+def test_multisplit_wide_digits_plain_equals_kernel(rng, width, dtype):
+    """Digits of 9 to 16 bits (the CUDA kernel's two 8-bit rounds), keys
+    alone and with values, at KPB 128; 64-bit keys shift arithmetically."""
+    keys = _row_keys(rng, (3, 128), dtype)
+    keys[1] = keys[1, 0]                        # one all-equal tile
+    vals = rng.integers(-2**31, 2**31, (3, 128)).astype(np.int32)
+    bits = 8 * np.dtype(dtype).itemsize
+    shift = bits - width - 3
+    with jax.enable_x64(True):
+        want = j_split(jnp.asarray(keys), shift, width, bits, interpret=True)
+        want_kv = j_split_kv(jnp.asarray(keys), jnp.asarray(vals), shift,
+                             width, bits, 32, interpret=True)
+    _same(tk.tile_multisplit(_t(keys), shift, width, bits), want)
+    _same(tk.tile_multisplit_kv(_t(keys), _t(vals), shift, width, bits, 32),
+          want_kv)
+
+
 def test_multisplit_rejects_what_the_reference_rejects():
     with pytest.raises(TypeError, match="multisplit takes"):
         tk.tile_multisplit(torch.zeros((1, 8), dtype=torch.int16), 0, 4, 16)
@@ -410,6 +430,21 @@ def test_assigned_histogram_plain_equals_kernel(rng, shift, width, dtype):
     hist = tref.radix_histogram_ref(_t(keys), shift, width)
     assert torch.equal(got[7], hist[5]) and torch.equal(got[9], 2 * hist[0])
     assert not got[5].any()
+
+
+@pytest.mark.parametrize("width", [9, 12, 16])
+def test_assigned_histogram_wide_digits_plain_equals_kernel(rng, width):
+    """Digits of 9 to 16 bits (the CUDA kernel's shared (r,) table, and
+    past 14 bits its global atomics adding valid[g] per key): out-of-order
+    and clamped tiles, valid 0, 2 and -3."""
+    keys = _row_keys(rng, (4, 128), np.uint32)
+    keys[2] = keys[2, 5]                        # one all-equal tile
+    tile_idx = np.array([3, 0, 2, 1, -1, 9, 2], np.int32)
+    valid = np.array([1, 2, 1, 0, 1, -3, 1], np.int32)
+    want = j_assigned(jnp.asarray(keys), jnp.asarray(tile_idx),
+                      jnp.asarray(valid), 32 - width, width, interpret=True)
+    _same(tk.assigned_histogram(_t(keys), _t(tile_idx), _t(valid),
+                                32 - width, width), want)
 
 
 def test_tile_histogram_pass_doctest_example():
