@@ -28,7 +28,8 @@ just after:
   for byte against ``torch.sort(stable=True)``, its census checked; then
   (``wide_digits``) the same at wide digits, 2^26 uint32 keys with int32
   values at d = 12 and 2^24 uint32 keys at d = 16 (the fused pass's wide
-  variant, the histogram's wide tables, ``merge_rows`` at r = 65536),
+  variant, the histogram's wide tables, ``merge_rows`` at r = 4096 and
+  65536),
   each kernel's time and the wide pass's scratch bytes printed;
 * the library surface, each public entry point of
   ``repro_torch.kernels`` whose TPU kernel no sort path calls
@@ -397,7 +398,8 @@ def check_merge_rows(torch, rec, reps):
     ms = cuda_ms(torch, lambda: plan.merge_rows(hist, lt, mt), reps)
     plain = cuda_ms(torch, lambda: ref.merge_rows_ref(hist, lt, mt), 1)
     res = dict(ms=ms, plain_ms=plain, max_abs_err=err,
-               bound_ms=bound_ms(hist.numel() * 6), rows=hist.shape[0])
+               bound_ms=bound_ms(hist.numel() * 6), rows=hist.shape[0],
+               r=hist.shape[1])
     emit({"phase": "kernel_check", "kernel": "merge_rows", "equal": True,
           **res})
     return res
@@ -1097,7 +1099,7 @@ def wide_case(torch, np, d, n, with_values, reps, dev):
         rows = r["tables"][0].numel()
         res = check_fused(torch, r, n, f"{label}_pass{i}", reps)
         res["scratch_bytes"] = fused.scratch_bytes(
-            rows, r["kw"]["r"], r["kw"]["a_max"], n)
+            rows, r["kw"]["r"], n, r["src_keys"].shape[0])
         passes.append(res)
     merge = check_merge_rows(torch, rec["merge"][0], max(1, reps // 2))
     del rec
@@ -1657,7 +1659,7 @@ def run(args) -> int:
              bound_by="bytes",
              library_ms=kmerge_res["torch_sort_stable_ms"]),
     ]
-    w12 = wide[12]
+    w12, w16 = wide[12], wide[16]
     kernels += [
         dict(name="histogram_wide", route="cuda",
              source=src + "histogram.cu",
@@ -1669,7 +1671,17 @@ def run(args) -> int:
              source=src + "fused_pass.cu",
              replaces="src/repro/kernels/fused.py:129",
              launches=w12["sort"]["launches"]["fused_pass"],
-             **_k(w12["passes"][0]), bound_by="bytes", library_ms=None)]
+             **_k(w12["passes"][0]), bound_by="bytes", library_ms=None),
+        dict(name="fused_pass_wide_d16", route="cuda",
+             source=src + "fused_pass.cu",
+             replaces="src/repro/kernels/fused.py:129",
+             launches=w16["sort"]["launches"]["fused_pass"],
+             **_k(w16["passes"][0]), bound_by="bytes", library_ms=None),
+        dict(name="merge_rows_wide", route="cuda",
+             source=src + "merge_rows.cu",
+             replaces="src/repro/core/plan.py:250",
+             launches=w16["sort"]["launches"]["merge_rows"],
+             **_k(w16["merge_rows"]), bound_by="bytes", library_ms=None)]
     lib_src = {"bitonic_rows": ("bitonic_rows.cu", "bitonic.py:90"),
                "bitonic_rows_kv": ("bitonic_rows.cu", "bitonic.py:100"),
                "multisplit": ("multisplit.cu", "multisplit.py:87"),

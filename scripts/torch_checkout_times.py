@@ -7,7 +7,7 @@ comes first on the path), naming this script by its path:
 
     cd <checkout> && python3 <repo>/scripts/torch_checkout_times.py \
         [merge] [zipf] [kv] [multisplit] [int64] [float32]
-        [histogram]
+        [histogram] [wide] [merge_rows]
 
 ``merge`` times ``kway_merge_round`` on ``chip_smoke.py``'s out-of-core
 round (4 sorted runs of 2^28 uniform uint32 keys, an int32 index leaf,
@@ -25,8 +25,14 @@ and float32 cases), and each profiles one more run with
 copies and memsets) beside the run's wall time, and the largest device
 entries; ``histogram`` times ``digit_total`` on 2^28 uniform uint32
 keys at width 8 (the main path's prologue, shift 24) and on 2^24 at width
-16 (null where the checkout refuses it).  Medians of the timed runs after a
-warm-up, CUDA events; one JSON line each.
+16 (null where the checkout refuses it); ``wide`` times ``hybrid_sort``
+on ``chip_smoke.py``'s wide-digit cases (2^26 uniform uint32 keys with an
+int32 index at d = 12, 2^24 keys alone at d = 16, Table 3's (4,0) config
+otherwise) and each of their executed fused passes (the fused pass's wide
+variant) on the arguments a first run recorded; ``merge_rows`` times
+``plan.merge_rows`` on the first (a_max, r) histogram of the 2^28 KV sort
+at d = 8 (r = 256) and of those two sorts (r = 4096, 65536).  Medians of
+the timed runs after a warm-up, CUDA events; one JSON line each.
 """
 import json
 import os
@@ -176,6 +182,94 @@ def histogram_times(dev):
     return out
 
 
+#: Table 3's (4,0) config, as chip_smoke.py's wide cases take it
+WIDE_CFG = dict(kpb=6912, local_threshold=9216, merge_threshold=3000)
+
+
+def recorded(keys, vals, cfg):
+    """Runs ``hybrid_sort`` once, recording clones of the arguments of every
+    fused pass and of the first ``merge_rows`` call."""
+    from repro_torch import hybrid_sort
+    from repro_torch.core import plan
+    from repro_torch.kernels import fused
+    rec = {"passes": [], "merge": None}
+    orig_pass, orig_merge = fused.fused_counting_pass, plan.merge_rows
+
+    def pass_hook(src_keys, src_vals, alt_keys, alt_vals, sc, *tables, **kw):
+        rec["passes"].append((src_keys.clone(),
+                              tuple(v.clone() for v in src_vals), tuple(sc),
+                              tuple(t.clone() for t in tables), dict(kw)))
+        return orig_pass(src_keys, src_vals, alt_keys, alt_vals, sc, *tables,
+                         **kw)
+
+    def merge_hook(hist, lt, mt):
+        if rec["merge"] is None:
+            rec["merge"] = (hist.clone(), lt, mt)
+        return orig_merge(hist, lt, mt)
+
+    fused.fused_counting_pass, plan.merge_rows = pass_hook, merge_hook
+    try:
+        hybrid_sort(keys, vals, cfg=cfg)
+    finally:
+        fused.fused_counting_pass, plan.merge_rows = orig_pass, orig_merge
+    torch.cuda.synchronize()
+    return rec
+
+
+def wide_inputs(dev, d):
+    """chip_smoke.py's wide-digit case at d: (keys, values or None, cfg)."""
+    from repro_torch.core.model import SortConfig
+    n, with_values = {12: (1 << 26, True), 16: (1 << 24, False)}[d]
+    keys = torch.from_numpy(np.random.default_rng(2017 + d).integers(
+        0, 2**32, n, dtype=np.uint32)).to(dev)
+    vals = (torch.arange(n, dtype=torch.int32, device=dev) if with_values
+            else None)
+    return keys, vals, SortConfig(d=d, **WIDE_CFG)
+
+
+def wide_times(dev):
+    from repro_torch import hybrid_sort
+    from repro_torch.kernels import fused
+    out = {}
+    for d in (12, 16):
+        keys, vals, cfg = wide_inputs(dev, d)
+        rec = recorded(keys, vals, cfg)
+        for i, (k, v, sc, tables, kw) in enumerate(rec["passes"]):
+            ak, av = torch.empty_like(k), tuple(torch.empty_like(x)
+                                                for x in v)
+            times = event_ms(lambda: fused.fused_counting_pass(
+                k, v, ak, av, sc, *tables, **kw), 5)
+            out[f"d{d}_pass{i}_ms"] = times
+            out[f"d{d}_pass{i}_median_ms"] = statistics.median(times)
+        del rec
+        torch.cuda.empty_cache()
+        times = event_ms(lambda: hybrid_sort(keys, vals, cfg=cfg), 5)
+        out[f"d{d}_sort_ms"] = times
+        out[f"d{d}_sort_median_ms"] = statistics.median(times)
+        del keys, vals
+        torch.cuda.empty_cache()
+    return out
+
+
+def merge_rows_times(dev):
+    from repro_torch.core import plan
+    from repro_torch.core.model import SortConfig
+    keys = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 2**32, 1 << 28, dtype=np.uint32)).to(dev)
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
+    cases = [(keys, vals, SortConfig(d=8, **WIDE_CFG))]
+    cases += [wide_inputs(dev, d) for d in (12, 16)]
+    out = {}
+    for keys, vals, cfg in cases:
+        hist, lt, mt = recorded(keys, vals, cfg)["merge"]
+        times = event_ms(lambda: plan.merge_rows(hist, lt, mt), 9)
+        r = hist.shape[1]
+        out[f"r{r}_rows"] = hist.shape[0]
+        out[f"r{r}_ms"] = times
+        out[f"r{r}_median_ms"] = statistics.median(times)
+    return out
+
+
 def main(argv=None) -> int:
     what = (argv if argv is not None else sys.argv[1:]) or ["merge", "zipf"]
     if not torch.cuda.is_available():
@@ -186,7 +280,8 @@ def main(argv=None) -> int:
         res = {"merge": merge_times, "zipf": zipf_times, "kv": kv_times,
                "multisplit": multisplit_times, "int64": int64_times,
                "float32": float32_times,
-               "histogram": histogram_times}[name](dev)
+               "histogram": histogram_times, "wide": wide_times,
+               "merge_rows": merge_rows_times}[name](dev)
         print(json.dumps({"phase": f"checkout_{name}",
                           "checkout": os.path.basename(os.getcwd()), **res}),
               flush=True)

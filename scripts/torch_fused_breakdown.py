@@ -3,7 +3,7 @@
 
 Run from the repository root:
 
-    python3 scripts/torch_fused_breakdown.py [--log2n 28] [--reps 3]
+    python3 scripts/torch_fused_breakdown.py [--log2n 28] [--reps 3] [--wide]
 
 It records the two fused passes of ``repro_torch.hybrid_sort`` on 2^log2n
 uniform uint32 keys with int32 values (``chip_smoke.capture``), then times
@@ -12,8 +12,12 @@ its arguments: no second next-pass count (lookahead off), no next-pass
 count at all (next widths 0), no look-back wait (every row a region
 start), no value leaves, and all four off ("minimal").  Those variants'
 outputs are not the pass's and are not checked (``chip_smoke.py`` holds
-the kernel to its plain version).  Prints one JSON line per pass, then the
-card's name and power limit.
+the kernel to its plain version).  With ``--wide`` it takes instead the
+passes of ``chip_smoke.py``'s wide-digit cases (2^(log2n - 2) keys with
+int32 values at d = 12, 2^(log2n - 4) keys alone at d = 16: the fused
+pass's wide variant, where "no look-back wait" leaves every row without a
+look-back).  Prints one JSON line per pass, then the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -59,6 +63,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=28)
     parser.add_argument("--reps", type=int, default=3)
+    parser.add_argument("--wide", action="store_true",
+                        help="the wide-digit cases (d = 12 and 16)")
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -68,14 +74,32 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     chip_smoke.build()
-    n = 1 << args.log2n
-    rng = np.random.default_rng(11)
-    keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
-    vals = torch.arange(n, dtype=torch.int32, device=dev)
-    rec = chip_smoke.capture(torch, keys, vals)
-    for i, r in enumerate(rec["passes"]):
-        chip_smoke.emit({"phase": "fused_breakdown", "pass": f"kv_pass{i}",
-                         "n": n, "ms": breakdown(torch, r, args.reps)})
+    if args.wide:
+        from repro_torch.core.model import SortConfig
+        cases = []
+        for d, below, with_values in chip_smoke.WIDE:
+            n = 1 << (args.log2n - below)
+            keys = torch.from_numpy(np.random.default_rng(2017 + d).integers(
+                0, 2**32, n, dtype=np.uint32)).to(dev)
+            vals = (torch.arange(n, dtype=torch.int32, device=dev)
+                    if with_values else None)
+            cases.append((f"d{d}", n, keys, vals,
+                          SortConfig(**dict(chip_smoke.D9, d=d))))
+    else:
+        n = 1 << args.log2n
+        rng = np.random.default_rng(11)
+        keys = torch.from_numpy(rng.integers(0, 2**32, n,
+                                             dtype=np.uint32)).to(dev)
+        vals = torch.arange(n, dtype=torch.int32, device=dev)
+        cases = [("kv", n, keys, vals, None)]
+    for label, n, keys, vals, cfg in cases:
+        rec = chip_smoke.capture(torch, keys, vals, passes=8, cfg=cfg)
+        for i, r in enumerate(rec["passes"]):
+            chip_smoke.emit({"phase": "fused_breakdown",
+                             "pass": f"{label}_pass{i}", "n": n,
+                             "ms": breakdown(torch, r, args.reps)})
+        del rec, keys, vals
+        torch.cuda.empty_cache()
     print(chip_smoke.nvidia_smi_line())
     return 0
 

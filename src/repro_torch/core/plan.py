@@ -7,8 +7,9 @@ Every table keeps the reference's static size (a_max, g_max, ...) so it
 compares with the reference entry for entry.  The ``jnp.nonzero(size=)``
 sites use ``kernels.ops.static_nonzero`` (no host read), and every
 ``cumsum`` is pinned to int32 so no per-key temporary widens to int64.
-``merge_rows`` is a small CUDA kernel on the card (one thread per active
-row) and a plain loop on the CPU.
+``merge_rows`` is a CUDA kernel on the card (one warp per active row,
+resolving the R3 recurrence 32 sub-buckets at a time: ``csrc/merge_rows.cu``)
+and a plain loop on the CPU.
 """
 from __future__ import annotations
 

@@ -78,23 +78,36 @@
 // fused_wide_kernel: the same function for 512 < r <= 65536 (d = 10..16),
 // chosen on the host by r.  Three parts of the kernel above grow with r and
 // do not fit there: the two (16, r) shared tables (128 KB at r = 1024), the
-// look-back words (one per (row, digit): 256 KB per row at d = 16) and the
-// long runs' (16, r) next-digit tables.  So, per partition row:
+// dense look-back words (one per (row, digit): 256 KB per row at d = 16,
+// 1.6 GB for pass 0's 6 073 descriptor rows at 2^24 keys) and the long
+// runs' (16, r) next-digit tables.  So, per partition row:
 //   * the rank is stable_digit_order (common.cuh, shared with the
 //     multisplit): two stable 8-bit counting rounds in shared memory, the
 //     digit's low byte then its high bits, each through warp_mask_rank; the
 //     row keeps a uint16 slot -> key order and each slot's digit; the row's
 //     histogram is then sparse, one (digit, count) run per distinct digit of
 //     the sorted digits (run_starts: at most one run per key);
-//   * the in-segment carry is the TPU's own sequential carry: a running
-//     (a_max, r) table in device memory, the shape of base_excl.  A row
-//     waits on the flag of the row before it in its region (a region's
-//     first row, reset == 1, waits on none; tickets make sure that row has
-//     started, so there is no deadlock), then adds each of its runs to the
-//     carry of its (segment, digit) with one atomicAdd, whose old value is
-//     the run's carry, and sets its own flag.  Only the carry step is
-//     serialised along a region (pass 0 is one region of every row), and
-//     scratch is O(a_max·r + rows), no more than the plan's own tables;
+//   * the in-segment carry is a decoupled look-back over the row's live
+//     digits.  As soon as its runs are known a row publishes a bitmap of
+//     its live digits (per 32 digits the bits and the popcount before them,
+//     8 bytes) and one word per run, run k of row g (runs in digit order) at
+//     word blk_off[g] + k: a row has no more runs than keys, so the words
+//     are one per key slot, however wide r is.  After a fence and a barrier
+//     it release-stores its flag: a set flag says every digit whose bit is
+//     0 counts 0 in that row.  One warp then acquires the flags of the rows
+//     before it in its region, up to 256 of them, at once (tickets make
+//     sure those rows have started, and a row sets its flag before it
+//     waits on anything, so there is no deadlock).  Each thread keeps a
+//     few of the row's runs walking back at once, a few rows a round in
+//     two round trips of independent loads (offsets, reset flags and
+//     bitmap entries; then the live digits' words): a 0 bit adds nothing,
+//     a live word adds its count and an inclusive word ends the walk, and
+//     the region's first row ends it whatever its bit.  A run that ends
+//     publishes its inclusive count at once and hands its slot to the
+//     thread's next run, in the same run order on every row, so a walk
+//     meets an inclusive word within the rows in flight and no run waits
+//     for a deeper one.  Scratch is O(rows·r/32 + n), and only the ticket
+//     and the flags are zeroed;
 //   * the next-pass counts are global atomics into hist / hist2, one per
 //     key, or one per warp step whose 32 keys share a (segment, next digit)
 //     bin (all-equal keys);
@@ -103,7 +116,9 @@
 //     comes into the same staging buffer with 16-byte loads and leaves the
 //     same way.
 // It takes kpb <= 2^16 within 227 KB (WideLayout: at kpb 6912 with 4-byte
-// keys and leaves 142 KB, one CTA of 512 threads per SM) and n < 2^31.
+// keys and leaves 142 KB, and 2 KB of static tables: one CTA of 512
+// threads per SM); its words are 32 bits below n = 2^30 and 64 from there,
+// as above.
 #include <cuda/atomic>
 
 #include "common.cuh"
@@ -321,9 +336,9 @@ struct PassArgs {
   int* hist;
   int* hist2;
   int* ticket;
-  W* words;         // fused_pass_kernel's look-back words
-  int* flags;       // fused_wide_kernel: (rows,) carry-done flags
-  int* carry;       // and the running (a_max, r) in-segment carry
+  W* words;         // look-back words: per (row, digit), or (wide) per run
+  int* flags;       // fused_wide_kernel: (rows,) published flags
+  unsigned long long* bitmap;   // and (rows, r / 32) live-digit bitmaps
 };
 
 // Copy-through row: key and every value leaf to their own index.
@@ -549,18 +564,26 @@ fused_pass_kernel(const PassArgs<K, W> a) {
 
 // ---- the wide variant (512 < r <= 65536) ----------------------------------
 
-// The longest a row waits for the row before it (about 10 s) before the
+// The longest a row waits for an earlier row's flag (about 10 s) before the
 // launch fails.
 constexpr long long kWaitCycles = 1LL << 34;
-// Runs a thread adds to the carry per batch of atomics in flight: one
-// batch covers a row of 16 * kPassThreads keys.
-constexpr int kCarryBatch = 16;
+// Earlier rows whose flags a row confirms at once before its look-back:
+// eight per lane of one warp.
+constexpr int kConfirmRows = 256;
+// The look-back's two shapes (runs a thread walks at once, rows per round,
+// each of the runs' loads in flight together): a row whose region began at
+// most kNearRows rows before it takes many runs a short way; others fewer
+// runs further (measured, PERF.md §6).
+constexpr int kNearRuns = 8, kNearRows = 2;
+constexpr int kFarRuns = 2, kFarRows = 8;
 
 // Byte offsets of the wide variant's shared memory: the staging buffer (the
 // row's keys in index order, then each leaf), the slot -> key order, the
-// rank scratch, the sorted digits, each slot's run start, each run's
-// destination offset (indexed by its first slot), the per-warp counts and
-// digit bitmasks of the 8-bit rounds, their bins and bin starts.
+// rank scratch (then each run's first slot, by run), the sorted digits,
+// each slot's run start, each run's destination offset (indexed by its
+// first slot), the per-warp counts (then the bitmap's popcount prefix) and
+// digit bitmasks (then the row's bitmap of live digits) of the 8-bit
+// rounds, their bins and bin starts.
 struct WideLayout {
   size_t order, tmp, sdig, rstart, delta, wcnt, masks, bins, total;
   __host__ __device__ WideLayout(int kpb, int key_bytes, int leaf_bytes) {
@@ -576,12 +599,8 @@ struct WideLayout {
     total = bins + sizeof(int) * 2 * kRoundBins;
   }
 };
-
-// The wide variant's zeroed scratch: an int ticket, then at byte 16 one int
-// flag per row, then the int (a_max, r) carry table.
-__host__ __device__ inline size_t wide_flags_bytes(int rows) {
-  return align16(sizeof(int) * static_cast<size_t>(rows));
-}
+// the row's bitmap (r / 32 words) and its prefix live in masks and wcnt
+static_assert(65536 / 32 <= kPassWarps * kRoundBins, "bitmap fits masks");
 
 // One warp step of the wide next-pass count (every lane calls it): one
 // global atomic per live key, or one for the whole step when its 32 keys
@@ -613,28 +632,244 @@ __device__ void move_leaf_wide(const void* src, void* dst, long long off,
     d[static_cast<long long>(delta[rstart[j]]) + j] = st[order[j]];
 }
 
+// Exclusive prefix of popc(bits[0, nw)) into pre, by the whole block (each
+// thread a contiguous range of words); *total gets the sum.  `tops` holds
+// one int per warp.
+__device__ void popc_exclusive(const unsigned* bits, int* pre, int nw,
+                               int* tops, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int per = (nw + blockDim.x - 1) / blockDim.x;
+  const int b = min(static_cast<int>(threadIdx.x) * per, nw);
+  const int e = min(b + per, nw);
+  int own = 0;
+  for (int w = b; w < e; ++w) own += __popc(bits[w]);
+  int incl = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(kFullMask, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) tops[warp] = incl;
+  __syncthreads();
+  int run = incl - own;
+  for (int w = 0; w < warp; ++w) run += tops[w];
+  for (int w = b; w < e; ++w) {
+    pre[w] = run;
+    run += __popc(bits[w]);
+  }
+  if (threadIdx.x == blockDim.x - 1) *total = run;
+}
+
+__device__ __forceinline__ int flag_peek(int* flag) {
+  return cuda::atomic_ref<int, cuda::thread_scope_device>(*flag).load(
+      cuda::memory_order_relaxed);
+}
+
+// Spins until an earlier row's flag is set (the caller then fences): a row
+// that never publishes is a broken descriptor table, so the launch fails
+// rather than hang the card.
+__device__ void wait_flag(int* flag) {
+  if (flag_peek(flag)) return;
+  const long long t0 = clock64();
+  do {
+    __nanosleep(32);
+    if (clock64() - t0 > kWaitCycles) __trap();
+  } while (!flag_peek(flag));
+}
+
+// By one warp: waits for the flags of the rows before g in its region, up
+// to kConfirmRows of them, with one acquire for them all, and keeps each
+// such row's reset flag and offset in win[g - 1 - row].  Returns the
+// lowest row so confirmed (the region's first row when it lies within
+// reach).
+__device__ int confirm_rows(const int* blk_reset, const int* blk_off,
+                            int* flags, int g, int lane, int2* win) {
+  constexpr int kPer = kConfirmRows / 32;
+  const int lo = max(0, g - kConfirmRows);
+  int rs[kPer], seen[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {   // one round of independent loads
+    const int p = g - 1 - lane - 32 * j;
+    rs[j] = p >= lo ? __ldg(blk_reset + p) : 1;
+    seen[j] = p >= lo ? flag_peek(flags + p) : 1;
+    win[lane + 32 * j] = make_int2(rs[j], p >= lo ? __ldg(blk_off + p) : 0);
+  }
+  int start = -1;   // the highest row before g that starts a region
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const unsigned b = __ballot_sync(kFullMask, rs[j] != 0);
+    if (start < 0 && b) start = g - 1 - (__ffs(b) - 1) - 32 * j;
+  }
+  const int front = start >= 0 ? start : lo;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int p = g - 1 - lane - 32 * j;
+    if (p >= front && !seen[j]) wait_flag(flags + p);
+  }
+  cuda::atomic_thread_fence(cuda::memory_order_acquire,
+                            cuda::thread_scope_device);
+  return front;
+}
+
+// The in-segment carry of every run of row g by decoupled look-back, the
+// runs (in digit order) dealt to the threads in turn.  A thread keeps RUNS
+// runs in flight; each walks rows g-1, g-2, ... ROWS a round, in two round
+// trips: each row's reset flag and offset (from `win`
+// within the confirmed window) and bitmap entry at once (an entry read past
+// the region's first row is ignored), then the words of the live digits.
+// A row whose bit is 0 adds nothing; a live one adds its word's count, and
+// an inclusive word ends the walk; the region's first row ends it whatever
+// its bit.  A run that ends publishes its inclusive word and its
+// destination base at once, and its slot takes the thread's next run, so
+// no run waits for a deeper one.  Rows below `front` are confirmed first
+// (their flags awaited) by the round that reaches them.
+template <typename W, int RUNS, int ROWS>
+__device__ void look_back_runs(const int* blk_reset, const int* blk_off,
+                               int* flags, unsigned long long* bitmap,
+                               W* words, int nw, int g, int front,
+                               const int2* win, const unsigned short* runs,
+                               const unsigned short* sdig, int nruns,
+                               int count, const int* bex, W* row_words,
+                               int* delta) {
+  using L = Look<W>;
+  int k[RUNS], p[RUNS];
+  unsigned dig[RUNS];
+  long long acc[RUNS];
+  int next = threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < RUNS; ++u) {
+    k[u] = next < nruns ? next : -1;
+    dig[u] = next < nruns ? sdig[runs[next]] : 0u;
+    p[u] = g - 1;
+    acc[u] = 0;
+    next += blockDim.x;
+  }
+  for (;;) {
+    bool any = false, deep = false;
+#pragma unroll
+    for (int u = 0; u < RUNS; ++u) {
+      any |= k[u] >= 0;
+      deep |= k[u] >= 0 && p[u] - ROWS + 1 < front;
+    }
+    if (!any) return;
+    if (deep) {   // rows not yet confirmed: await their flags
+#pragma unroll
+      for (int u = 0; u < RUNS; ++u) {
+        bool past = k[u] < 0;
+        for (int j = 0; j < ROWS && !past; ++j) {
+          const int row = p[u] - j;
+          if (row < 0) break;
+          if (row < front) wait_flag(flags + row);
+          past = __ldg(blk_reset + row) != 0;
+        }
+      }
+      cuda::atomic_thread_fence(cuda::memory_order_acquire,
+                                cuda::thread_scope_device);
+    }
+    int rs[RUNS][ROWS], ro[RUNS][ROWS];
+    unsigned long long bm[RUNS][ROWS];
+#pragma unroll
+    for (int u = 0; u < RUNS; ++u)
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        const int row = p[u] - j;
+        const bool live = k[u] >= 0 && row >= 0;
+        int2 e = make_int2(1, 0);
+        if (live)
+          e = g - 1 - row < kConfirmRows
+                  ? win[g - 1 - row]
+                  : make_int2(__ldg(blk_reset + row), __ldg(blk_off + row));
+        rs[u][j] = e.x;
+        ro[u][j] = e.y;
+        bm[u][j] = live ? peek(bitmap + static_cast<long long>(row) * nw +
+                               (dig[u] >> 5))
+                        : 0ull;
+      }
+    W w[RUNS][ROWS];
+    unsigned in[RUNS], first[RUNS];   // bit j: row p - j is of
+                                    // the region; is its first row
+#pragma unroll
+    for (int u = 0; u < RUNS; ++u) {
+      bool past = k[u] < 0;
+      in[u] = first[u] = 0;
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        const bool at = !past && p[u] - j >= 0;
+        past |= rs[u][j] != 0;
+        in[u] |= static_cast<unsigned>(at) << j;
+        first[u] |= static_cast<unsigned>(rs[u][j] != 0) << j;
+        const unsigned bits = static_cast<unsigned>(bm[u][j]);
+        const unsigned below = bits & lanemask_lt(dig[u] & 31);
+        w[u][j] = at && ((bits >> (dig[u] & 31)) & 1u)
+                      ? peek(words + static_cast<long long>(ro[u][j]) +
+                             static_cast<int>(bm[u][j] >> 32) +
+                             __popc(below))
+                      : W(0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RUNS; ++u) {
+      if (k[u] < 0) continue;
+      bool done = false;
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        if (done) continue;
+        if (!((in[u] >> j) & 1u)) {   // before row 0: a broken table; stop
+          done = true;
+          continue;
+        }
+        acc[u] += static_cast<long long>(w[u][j] & L::kCount);
+        done = (w[u][j] >> L::kShift) == 2 || ((first[u] >> j) & 1u);
+      }
+      if (!done) {
+        p[u] -= ROWS;
+        continue;
+      }
+      const int at = runs[k[u]];
+      const int end = k[u] + 1 < nruns ? runs[k[u] + 1] : count;
+      publish(row_words + k[u],
+              L::kIncl | static_cast<W>(acc[u] + (end - at)));
+      delta[at] = bex[dig[u]] + static_cast<int>(acc[u]) - at;
+      k[u] = next < nruns ? next : -1;   // the slot's next run
+      dig[u] = next < nruns ? sdig[runs[next]] : 0u;
+      p[u] = g - 1;
+      acc[u] = 0;
+      next += blockDim.x;
+    }
+  }
+}
+
 // Partition row g (active, count > 0) of segment blk_seg[g], r > 512.
 template <typename K, typename W>
 __device__ void partition_row_wide(const PassArgs<K, W>& a, int g,
                                    long long off, int count,
                                    unsigned char* smem) {
+  using L = Look<W>;
   const int r = a.r;
+  const int nw = r / 32;
   const WideLayout lay(a.kpb, sizeof(K), a.leaf_bytes);
   K* skeys = reinterpret_cast<K*>(smem);                   // index order
   void* stage = smem;                                      // then each leaf
   auto* order = reinterpret_cast<unsigned short*>(smem + lay.order);
   auto* tmp = reinterpret_cast<unsigned short*>(smem + lay.tmp);
+  auto* runs = tmp;               // run k's first slot, after the order
   auto* sdig = reinterpret_cast<unsigned short*>(smem + lay.sdig);
   auto* rstart = reinterpret_cast<unsigned short*>(smem + lay.rstart);
   int* delta = reinterpret_cast<int*>(smem + lay.delta);  // by run start
   int* wcnt = reinterpret_cast<int*>(smem + lay.wcnt);
+  int* bpre = wcnt;               // after the order: (nw,) popcounts
   auto* masks = reinterpret_cast<unsigned*>(smem + lay.masks);
+  unsigned* bits = masks;         // after the order: (nw,) live digits
   int* bins = reinterpret_cast<int*>(smem + lay.bins);
   int* bexcl = bins + kRoundBins;
+  __shared__ int s_nruns, s_front;
+  __shared__ int2 s_win[kConfirmRows];   // confirmed rows' reset, offset
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int seg = a.blk_seg[g];
+  const bool reset = a.blk_reset[g] != 0;
   const long long seg_r = static_cast<long long>(seg) * r;
   const int* bex = a.base_excl + seg_r;
   const int* nsid = a.next_sid + seg_r;
@@ -653,48 +888,65 @@ __device__ void partition_row_wide(const PassArgs<K, W>& a, int g,
       [&](int i) { return digit_at(skeys[i], a.lo, a.width, true); }, order,
       tmp, sdig, wcnt, masks, bins, bexcl);
   run_starts(sdig, count, rstart, bins);
+  __syncthreads();
 
-  // 2. the carry.  Off the chain: each run's destination base, at its
-  //    first slot.  On it: wait for the row before in the region, add each
-  //    run to its (segment, digit) carry, release the next row.
-  __syncthreads();
+  // 2. publish at once: the bitmap of the row's live digits (masks is
+  //    zero again after the order), each 32 digits' bits beside the
+  //    popcount before them; run k (in digit order) gets word off + k,
+  //    its count with status AGG (INCL on a region's first row); then,
+  //    after a fence and a barrier, the row's flag
   for (int s = tid; s < count; s += blockDim.x)
-    if (s + 1 == count || sdig[s + 1] != sdig[s])   // a run's last slot
-      delta[rstart[s]] = bex[sdig[s]] - rstart[s];
-  if (tid == 0 && !a.blk_reset[g]) {
-    cuda::atomic_ref<int, cuda::thread_scope_device> prev(a.flags[g - 1]);
-    const long long t0 = clock64();
-    while (!prev.load(cuda::memory_order_acquire)) {
-      __nanosleep(32);
-      // a row before that never finishes is a broken descriptor table:
-      // fail the launch rather than hang the card
-      if (clock64() - t0 > kWaitCycles) __trap();
-    }
-  }
+    if (rstart[s] == s) atomicOr(bits + (sdig[s] >> 5), 1u << (sdig[s] & 31));
   __syncthreads();
-  // every atomic of a batch is issued before any result is used, so the
-  // step costs one round trip to L2, not one per run
-  for (int s0 = tid; s0 < count; s0 += kCarryBatch * blockDim.x) {
-    int old[kCarryBatch], first[kCarryBatch];
-#pragma unroll
-    for (int u = 0; u < kCarryBatch; ++u) {
-      const int s = s0 + u * blockDim.x;
-      first[u] = -1;
-      if (s < count && (s + 1 == count || sdig[s + 1] != sdig[s])) {
-        first[u] = rstart[s];
-        old[u] = atomicAdd(a.carry + seg_r + sdig[s], s + 1 - first[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kCarryBatch; ++u)
-      if (first[u] >= 0) delta[first[u]] += old[u];
-  }
+  popc_exclusive(bits, bpre, nw, bins, &s_nruns);
   __syncthreads();
-  if (tid == 0)   // the release orders every atomic the barrier ordered
+  unsigned long long* row_bits = a.bitmap + static_cast<long long>(g) * nw;
+  for (int w = tid; w < nw; w += blockDim.x)
+    publish(row_bits + w,
+            static_cast<unsigned long long>(bpre[w]) << 32 | bits[w]);
+  W* row_words = a.words + off;
+  for (int s = tid; s < count; s += blockDim.x)
+    if (s + 1 == count || sdig[s + 1] != sdig[s]) {   // a run's last slot
+      const unsigned d = sdig[s];
+      const int first = rstart[s];
+      const int k = bpre[d >> 5] + __popc(bits[d >> 5] & lanemask_lt(d & 31));
+      runs[k] = static_cast<unsigned short>(first);
+      publish(row_words + k,
+              (reset ? L::kIncl : L::kAgg) | static_cast<W>(s + 1 - first));
+    }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
     cuda::atomic_ref<int, cuda::thread_scope_device>(a.flags[g]).store(
         1, cuda::memory_order_release);
 
-  // 3. keys out in runs; next-pass counts
+  // 3. each run's carry: the look-back over the earlier rows of the
+  //    region (none on its first row)
+  const int nruns = s_nruns;
+  if (reset) {
+    for (int k = tid; k < nruns; k += blockDim.x) {
+      const int first = runs[k];
+      delta[first] = bex[sdig[first]] - first;
+    }
+  } else {
+    if (tid < 32) {
+      const int front = confirm_rows(a.blk_reset, a.blk_off, a.flags, g,
+                                     lane, s_win);
+      if (lane == 0) s_front = front;
+    }
+    __syncthreads();
+    if (g - s_front <= kNearRows)
+      look_back_runs<W, kNearRuns, kNearRows>(
+          a.blk_reset, a.blk_off, a.flags, a.bitmap, a.words, nw, g, s_front,
+          s_win, runs, sdig, nruns, count, bex, row_words, delta);
+    else
+      look_back_runs<W, kFarRuns, kFarRows>(
+          a.blk_reset, a.blk_off, a.flags, a.bitmap, a.words, nw, g, s_front,
+          s_win, runs, sdig, nruns, count, bex, row_words, delta);
+  }
+  __syncthreads();
+
+  // 4. keys out in runs; next-pass counts
   const bool count1 = a.nwidth > 0, count2 = a.lookahead && a.n2width > 0;
   for (int base = tid & ~31; base < count; base += blockDim.x) {
     const int j = base + lane;
@@ -716,7 +968,7 @@ __device__ void partition_row_wide(const PassArgs<K, W>& a, int g,
                                : -1, lane);
   }
 
-  // 4. each value leaf through the staging buffer
+  // 5. each value leaf through the staging buffer
   for (int v = 0; v < a.leaves.count; ++v) {
     const void* src = a.leaves.src[v];
     void* dst = a.leaves.dst[v];
@@ -778,25 +1030,21 @@ cudaError_t launch_pass(const void* src_keys, void* dst_keys,
                         const int* const* tables, int rows,
                         const int* base_excl, const int* next_sid,
                         const int* windows, int lookahead, int r, int a_max,
-                        int kpb, void* hist, void* hist2, void* scratch,
+                        int kpb, void* hist, void* hist2, void* ticket,
+                        void* words, void* flags, void* bitmap,
                         cudaStream_t s) {
-  auto* sc = static_cast<unsigned char*>(scratch);
   PassArgs<K, W> a{static_cast<const K*>(src_keys), static_cast<K*>(dst_keys),
                    leaves, leaf_bytes, tables[0], tables[1], tables[2],
                    tables[3], tables[4], rows, base_excl, next_sid,
                    windows[0], windows[1], windows[2], windows[3],
                    windows[4], windows[5], lookahead, r, a_max, kpb,
-                   static_cast<int*>(hist),
-                   static_cast<int*>(hist2), reinterpret_cast<int*>(sc),
-                   reinterpret_cast<W*>(sc + 16), reinterpret_cast<int*>(
-                       sc + 16), reinterpret_cast<int*>(
-                       sc + 16 + wide_flags_bytes(rows))};
-  if constexpr (std::is_same<W, uint32_t>::value) {   // no look-back words
-    if (r > 512)
-      return launch_persistent(fused_wide_kernel<K, W>, a,
-                               WideLayout(kpb, sizeof(K), leaf_bytes).total,
-                               s);
-  }
+                   static_cast<int*>(hist), static_cast<int*>(hist2),
+                   static_cast<int*>(ticket), static_cast<W*>(words),
+                   static_cast<int*>(flags),
+                   static_cast<unsigned long long*>(bitmap)};
+  if (r > 512)
+    return launch_persistent(fused_wide_kernel<K, W>, a,
+                             WideLayout(kpb, sizeof(K), leaf_bytes).total, s);
   // the 8-bit digits' path does not pay for 16-bit staging
   const size_t shmem = PassLayout(kpb, sizeof(K), leaf_bytes, r).total;
   return r > 256 ? launch_persistent(fused_pass_kernel<K, W, uint16_t>, a,
@@ -805,17 +1053,15 @@ cudaError_t launch_pass(const void* src_keys, void* dst_keys,
                                      shmem, s);
 }
 
-// The zeroed scratch of the wide variant (r > 512): see wide_flags_bytes.
-extern "C" long long fused_wide_scratch_bytes(int rows, int r, int a_max) {
-  return static_cast<long long>(16 + wide_flags_bytes(rows) +
-                                sizeof(int) * static_cast<size_t>(a_max) * r);
-}
-
-// One fused pass over `rows` flat descriptor rows.  `scratch` is zeroed:
-// for r <= 512 an int ticket, then at byte 16 one look-back word of
-// `word_bytes` (4 or 8) per (row, digit); for 512 < r <= 65536 the wide
-// variant's (fused_wide_scratch_bytes).  hist (and hist2 when lookahead)
-// are zeroed (a_max * r,) int32 outputs.
+// One fused pass over `rows` flat descriptor rows.  The scratch (laid out
+// and sized by the wrapper, kernels/fused.py): `ticket`, one zeroed int;
+// for r <= 512 `words`, one zeroed look-back word of `word_bytes` (4 or 8)
+// per (row, digit), `flags` and `bitmap` unused; for 512 < r <= 65536
+// `flags`, one zeroed int per row, `bitmap`, r / 32 8-byte entries per row,
+// and `words`, one look-back word per key slot of the buffers (neither
+// needs zeroing: a row writes its whole bitmap, and the words of its live
+// digits, before its flag).  hist (and hist2 when lookahead) are zeroed
+// (a_max * r,) int32 outputs.
 extern "C" int fused_pass_launch(
     const void* src_keys, void* dst_keys, int key_bytes,
     const void* const* val_src, void* const* val_dst, const int* val_bytes,
@@ -823,11 +1069,12 @@ extern "C" int fused_pass_launch(
     const int* blk_reset, const int* blk_count, const int* blk_active,
     int rows, const int* base_excl, const int* next_sid, int lo, int width,
     int nlo, int nwidth, int n2lo, int n2width, int lookahead, int r,
-    int a_max, int kpb, void* hist, void* hist2,
-    void* scratch, int word_bytes, void* stream) {
+    int a_max, int kpb, void* hist, void* hist2, void* ticket, void* words,
+    void* flags, void* bitmap, int word_bytes, void* stream) {
   if (r < 2 || r > 65536 || num_vals < 0 || num_vals > kMaxLeaves ||
       rows < 1 || kpb < 1 || kpb > 65536 ||
-      (word_bytes != 4 && word_bytes != 8))
+      (word_bytes != 4 && word_bytes != 8) ||
+      (r > 512 && (r % 32 != 0 || !flags || !bitmap)))
     return cudaErrorInvalidValue;
   Leaves leaves{};
   leaves.count = num_vals;
@@ -844,15 +1091,15 @@ extern "C" int fused_pass_launch(
   const int windows[6] = {lo, width, nlo, nwidth, n2lo, n2width};
   REPRO_DISPATCH_KEY(key_bytes, K, {
     return static_cast<int>(
-        word_bytes == 4 || r > 512
+        word_bytes == 4
             ? launch_pass<K, uint32_t>(
                   src_keys, dst_keys, leaves, leaf_bytes, tables, rows,
                   base_excl, next_sid, windows, lookahead, r, a_max, kpb,
-                  hist, hist2, scratch, s)
+                  hist, hist2, ticket, words, flags, bitmap, s)
             : launch_pass<K, unsigned long long>(
                   src_keys, dst_keys, leaves, leaf_bytes, tables, rows,
                   base_excl, next_sid, windows, lookahead, r, a_max, kpb,
-                  hist, hist2, scratch, s));
+                  hist, hist2, ticket, words, flags, bitmap, s));
   })
   return static_cast<int>(cudaErrorInvalidValue);
 }

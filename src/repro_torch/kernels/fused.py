@@ -5,20 +5,22 @@ copies the done gaps between them through, scatters keys and every value
 leaf into the alternate ping-pong buffer, and counts the next pass's digit
 histogram (and, with ``lookahead``, the one after) — one read and one write
 of the keys per pass (§4.3–§4.4).  On a CUDA tensor it launches
-``csrc/fused_pass.cu`` (persistent CTAs take the flat descriptor rows by
-ticket: stable in-row rank, in-segment carries by decoupled look-back over
-packed status words, the row staged digit-major in shared memory and
-written out in runs; past r = 512 its wide variant: two 8-bit counting
-rounds per row and a sequential in-segment carry; see the source note); on
-a CPU tensor it runs the plain version in ``ref.py``.
+``csrc/fused_pass.cu``: persistent CTAs take the flat descriptor rows by
+ticket, rank each row stably, obtain its in-segment carries by decoupled
+look-back over packed status words, and write the row out in runs from a
+digit-major staging buffer.  Up to r = 512 a row publishes one word per
+digit; past it (the wide variant) a row ranks in two 8-bit counting
+rounds, publishes a bitmap of its live digits and one word per run, and
+walks back over its live digits only (see the source note).  On a CPU
+tensor it runs the plain version in ``ref.py``.
 The alternate buffers are written in place and returned, which takes the
 place of the reference's donation.
 
-The host-side sizing of the r <= 512 kernel is plain Python:
-``lookback_word_bytes`` (the look-back word's width from n) and
-``lookback_scratch_bytes``; the wide variant's scratch size comes from the
-C side (``fused_wide_scratch_bytes``).  A KPB whose row does not fit one
-CTA's shared memory is refused by the launch.
+The scratch of both kernels is laid out and sized here, in plain Python:
+``lookback_word_bytes`` (the look-back word's width from n),
+``lookback_scratch_bytes`` (r <= 512) and ``wide_scratch_layout`` (r >
+512); ``scratch_bytes`` picks one.  A KPB whose row does not fit one CTA's
+shared memory is refused by the launch.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ LOOKBACK_MAX_RADIX = 512
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = ([_P, _P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I, _P, _P] + [_I] * 10 +
-         [_P] * 3 + [_I, _P])
+         [_P] * 6 + [_I, _P])
 
 
 def lookback_word_bytes(n: int) -> int:
@@ -54,14 +56,27 @@ def lookback_scratch_bytes(rows: int, r: int, n: int) -> int:
     return 16 + rows * r * lookback_word_bytes(n)
 
 
-def scratch_bytes(rows: int, r: int, a_max: int, n: int) -> int:
-    """The zeroed scratch of one CUDA launch: the look-back words, or past
-    r = 512 the wide variant's flags and (a_max, r) carry table (sized by
-    ``csrc/fused_pass.cu``)."""
+def wide_scratch_layout(rows: int, r: int, length: int, n: int) -> dict:
+    """Byte offsets of the wide variant's scratch (r > 512): the int ticket
+    at 0; at 16 one int flag per row; then ``bitmap``, each row's r / 32
+    8-byte entries (32 live-digit bits, the popcount before them); then
+    ``words``, one look-back word (``lookback_word_bytes(n)``) per slot of
+    the ``length``-key buffers, since a row's runs take the words from its
+    first key's offset on.  Only the first ``zeroed`` bytes (ticket and
+    flags) need zeroing; ``total`` is the size."""
+    bitmap = 16 + -(-4 * rows // 16) * 16
+    words = bitmap + rows * (r // 32) * 8
+    return dict(flags=16, bitmap=bitmap, words=words, zeroed=bitmap,
+                total=words + length * lookback_word_bytes(n))
+
+
+def scratch_bytes(rows: int, r: int, n: int, length: int) -> int:
+    """The scratch of one CUDA launch over ``rows`` descriptor rows and
+    ``length``-key buffers: the look-back words, or past r = 512 the wide
+    variant's flags, bitmaps and words."""
     if r <= LOOKBACK_MAX_RADIX:
         return lookback_scratch_bytes(rows, r, n)
-    return _build.function("fused_pass", "fused_wide_scratch_bytes",
-                           [_I, _I, _I], ctypes.c_longlong)(rows, r, a_max)
+    return wide_scratch_layout(rows, r, length, n)["total"]
 
 
 def pad_length(n: int, kpb: int) -> int:
@@ -120,8 +135,17 @@ def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
     rows = tables[0].shape[0]
     hist = torch.zeros(a_max * r, dtype=torch.int32, device=dev)
     hist2 = torch.zeros_like(hist) if lookahead else None
-    scratch = torch.zeros(scratch_bytes(rows, r, a_max, n), dtype=torch.uint8,
-                          device=dev)
+    if r <= LOOKBACK_MAX_RADIX:
+        scratch = torch.zeros(lookback_scratch_bytes(rows, r, n),
+                              dtype=torch.uint8, device=dev)
+        at = dict(words=16)
+    else:
+        at = wide_scratch_layout(rows, r, src_keys.shape[0], n)
+        scratch = torch.empty(at["total"], dtype=torch.uint8, device=dev)
+        scratch[:at["zeroed"]].zero_()
+    base = scratch.data_ptr()
+    spans = [_P(base + at[k]) if k in at else _P(None)
+             for k in ("words", "flags", "bitmap")]
     nv = len(src_vals)
     val_src = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in src_vals])
     val_dst = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in alt_vals])
@@ -136,7 +160,7 @@ def _launch(src_keys, src_vals, alt_keys, alt_vals, sc, tables, base_excl,
                 _build.ptr(next_sid), lo, width, nlo, nwidth, n2lo, n2width,
                 int(lookahead), r, a_max, kpb, _build.ptr(hist),
                 _P(hist2.data_ptr() if lookahead else None),
-                _build.ptr(scratch), lookback_word_bytes(n),
+                _build.ptr(scratch), *spans, lookback_word_bytes(n),
                 _build.stream_handle(dev))
     _build.check("fused_pass", rc)
     _build.COUNTS["fused_pass"] += 1

@@ -662,15 +662,17 @@ _LEAF_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
 
 
 def _pass_inputs(dev, rng, n, key_bytes, d, pass_idx, bounds, a_max, kpb,
-                 n_leaves, all_equal=False):
-    """One pass's buffers and tables: keys of ``key_bytes`` in the given
-    active segments (``bounds``: (base, size)), ``n_leaves`` value leaves
-    of mixed widths, the tables of ``plan.make_region_blocks`` and a
-    next-segment map with some done buckets."""
+                 n_leaves, all_equal=False, x=None):
+    """One pass's buffers and tables: keys of ``key_bytes`` (random, or the
+    given ``x``) in the given active segments (``bounds``: (base, size)),
+    ``n_leaves`` value leaves of mixed widths, the tables of
+    ``plan.make_region_blocks`` and a next-segment map with some done
+    buckets."""
     from repro_torch.core import plan
     from repro_torch.kernels import fused
     bits = 8 * key_bytes
-    x = rng.integers(0, 2**bits, n, dtype=_KEY_DTYPES[key_bytes])
+    if x is None:
+        x = rng.integers(0, 2**bits, n, dtype=_KEY_DTYPES[key_bytes])
     if all_equal:
         x[:] = x[n // 2]
     sc = plan.digit_window(pass_idx, bits, d)
@@ -878,15 +880,34 @@ def test_fused_kernel_512_digits_at_table3_kpb(dev, key_bytes):
             _assert_pass_bytes_equal(got, want, n)
 
 
+def _skewed_keys(rng, n, d, kpb):
+    """uint32 keys whose pass-0 digits (the top d bits) are mostly four
+    common digits, with rare digits at fixed periods of rows: digit 7 once
+    every 50 rows, digit 9 once every 120, digit r - 1 in rows 0 and 300
+    only, so their walks reach far back (for digit r - 1 past the 256 rows
+    a row confirms at once)."""
+    r = 1 << d
+    dig = rng.choice(np.array([1, 2, r // 2, r - 2], np.uint32), n)
+    dig[::50 * kpb] = 7
+    dig[37::120 * kpb] = 9
+    dig[[11, 300 * kpb + 5]] = r - 1
+    low = rng.integers(0, 2**(32 - d), n, dtype=np.uint32)
+    return (dig << np.uint32(32 - d)) | low
+
+
 @pytest.mark.parametrize("d", [12, 16])
 @pytest.mark.parametrize("case", ["all_equal", "later_pass", "last_pass",
-                                  "one_region"])
+                                  "one_region", "long_region", "skewed",
+                                  "unaligned_regions"])
 def test_fused_wide_kernel_cases_equal_plain(dev, d, case):
     """The wide variant (r > 512): all-equal keys (one run per row, one
     next-pass atomic per warp step), a later pass (many short regions), the
-    last pass (at d = 12 8 bits wide: one counting round), and one region
-    of 38 rows of 8-byte keys at KPB 6912 starting off a 16-byte boundary
-    (a carry chain), with value leaves."""
+    last pass (at d = 12 8 bits wide: one counting round), one region of 38
+    rows of 8-byte keys at KPB 6912 starting off a 16-byte boundary, one
+    region of 310 rows (the look-back across many rows in flight), a
+    skewed region of 304 rows whose rare digits make the walks deep, and
+    regions whose first rows start off a 16-byte boundary, with value
+    leaves."""
     from repro_torch.kernels import fused, ref
     rng = np.random.default_rng(d + len(case))
     n = 1 << 18
@@ -902,13 +923,79 @@ def test_fused_wide_kernel_cases_equal_plain(dev, d, case):
     elif case == "last_pass":
         inp = _pass_inputs(dev, rng, n, 4, d, 31 // d, [(5, n - 9)], 3,
                            6912, 1)
-    else:
+    elif case == "one_region":
         inp = _pass_inputs(dev, rng, n, 8, d, 0, [(3, n - 3)], 2, 6912, 3)
+    elif case == "long_region":
+        n = 310 * 6912 - 5
+        inp = _pass_inputs(dev, rng, n, 4, d, 0, [(0, n)], 2, 6912, 2)
+    elif case == "skewed":
+        n = 304 * 6912
+        inp = _pass_inputs(dev, rng, n, 4, d, 0, [(0, n)], 2, 6912, 2,
+                           x=_skewed_keys(rng, n, d, 6912))
+    else:
+        n = 1 << 20
+        bounds = [(1, 70001), (70003, 300001), (370005, 200000),
+                  (570006, n - 570006)]
+        inp = _pass_inputs(dev, rng, n, 4, d, 1, bounds, 8, 6912, 2)
+        off = inp["tables"][1].cpu()
+        reset = inp["tables"][2].cpu()
+        active = inp["tables"][4].cpu()
+        firsts = off[(reset == 1) & (active == 1)]
+        assert bool((firsts % 4 != 0).all()) and firsts.numel() == 4
     for lookahead in (False, True):
         want = _run_pass(ref.fused_counting_pass_ref, inp, lookahead)
         got = _run_pass(fused.fused_counting_pass, inp, lookahead)
         torch.cuda.synchronize()
         _assert_pass_bytes_equal(got, want, n)
+
+
+def _r3_edge_rows(rng, r, lt, mt):
+    """(7, r) sub-bucket size rows of R3's edge cases: all zeros, zero runs
+    across 32-digit steps, sizes equal to local_threshold (and one above),
+    sizes that take acc exactly to merge_threshold at steps' edges, big
+    sizes near 2^31 - 1, many small sizes, and sizes that each start a
+    group."""
+    rows = np.zeros((7, r), np.int64)
+    rows[1] = rng.integers(1, mt, r)
+    for a, b in ((20, 100), (250, 300), (511, 1100), (r - 40, r)):
+        rows[1, a:b] = 0
+    rows[2] = rng.integers(0, 3, r)
+    rows[2, rng.choice(r, r // 8, replace=False)] = lt
+    rows[2, rng.choice(r, r // 16, replace=False)] = lt + 1
+    for at in range(0, r - 3, 31):
+        a = int(rng.integers(1, mt))
+        rows[3, at:at + 2] = a, mt - a
+        rows[3, at + 2:at + 4] = (mt - a - 1, 1) if a + 1 < mt else (0, 1)
+    rows[4] = rng.integers(0, 4, r)
+    rows[4, rng.choice(r, r // 4, replace=False)] = 2**31 - 1 - rng.integers(
+        0, 3, r // 4)
+    rows[4, 64:70] = 2**31 - 1
+    rows[5] = rng.integers(0, 3, r)
+    rows[6] = rng.integers(mt, max(mt, lt) + 1, r)
+    return rows.astype(np.int32)
+
+
+@pytest.mark.parametrize("r", [256, 4096, 65536])
+def test_merge_rows_kernel_equals_plain(dev, r):
+    """R3 on the card against its plain version: the edge rows alone, one
+    row (one warp), and the edge rows among far more random rows than the
+    card runs warps at once, at two threshold pairs."""
+    from repro_torch.core import plan
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(r)
+    many = max(64, (1 << 25) // r)
+    for lt, mt in ((9216, 3000), (48, 32)):
+        edge = _r3_edge_rows(rng, r, lt, mt)
+        rand = rng.integers(0, 2 * mt, (many, r)).astype(np.int32)
+        rand[rng.random((many, r)) < 0.5] = 0
+        rand[::7] = edge[rng.integers(0, len(edge), len(rand[::7]))]
+        for hist in (edge, edge[4:5], rand):
+            h = torch.from_numpy(hist).to(dev)
+            got = plan.merge_rows(h, lt, mt)
+            want = ref.merge_rows_ref(h, lt, mt)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
 
 
 def test_fused_kernel_refuses_rows_over_shared_memory(dev):

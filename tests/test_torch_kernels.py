@@ -312,3 +312,28 @@ def test_fused_lookback_word_width(n, word):
     assert tfused.lookback_word_bytes(n) == word
     rows = -(-max(n, 1) // 6912)
     assert tfused.lookback_scratch_bytes(rows, 256, n) == 16 + rows * 256 * word
+
+
+@pytest.mark.parametrize("r", [4096, 65536])
+@pytest.mark.parametrize("n,word", [(1 << 24, 4), ((1 << 30) + 7, 8)])
+def test_fused_wide_scratch_layout(r, n, word):
+    """The wide variant's scratch: a 16-byte ticket slot, one int flag per
+    row (16-byte aligned), r / 32 8-byte bitmap entries per row, one
+    look-back word per slot of the padded buffers; only ticket and flags
+    are zeroed."""
+    kpb = 6912
+    length = tfused.pad_length(n, kpb)
+    rows = n // kpb + 2 * 1821 + 2
+    lay = tfused.wide_scratch_layout(rows, r, length, n)
+    flags_end = 16 + (4 * rows + 15) // 16 * 16
+    assert lay["flags"] == 16
+    assert lay["zeroed"] == lay["bitmap"] == flags_end
+    assert lay["words"] == flags_end + rows * r // 32 * 8
+    assert lay["words"] % 16 == 0
+    assert lay["total"] == flags_end + rows * r // 4 + length * word
+    assert tfused.scratch_bytes(rows, r, n, length) == lay["total"]
+
+
+def test_fused_scratch_bytes_narrow_is_lookback():
+    assert tfused.scratch_bytes(100, 512, 1 << 20, 1 << 21) == (
+        tfused.lookback_scratch_bytes(100, 512, 1 << 20))

@@ -20,6 +20,7 @@ from repro.core import plan as jplan  # noqa: E402
 from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.kernels.ops import static_nonzero  # noqa: E402
 from conftest import entropy_keys  # noqa: E402
+from test_torch_gpu import _r3_edge_rows  # noqa: E402
 
 TCFG = jmodel.SortConfig(d=8, kpb=64, local_threshold=48, merge_threshold=32)
 PCFG = jmodel.SortConfig(d=5, kpb=32, local_threshold=16, merge_threshold=8)
@@ -118,6 +119,22 @@ def test_merge_rows_edge_rows(rng):
     hist[5] = [8] * 32
     ref = jplan.merge_rows(jnp.asarray(hist), 48, 32)
     got = tplan.merge_rows(_t(hist), 48, 32)
+    _eq(got[0], ref[0])
+    _eq(got[1], ref[1])
+
+
+@pytest.mark.parametrize("kind", range(7), ids=[
+    "all_zero", "zero_runs", "at_local", "fill_merge", "near_int_max", "tiny",
+    "each_breaks"])
+@pytest.mark.parametrize("lt,mt", [(9216, 3000), (48, 32)])
+def test_merge_rows_edge_rows_wide(kind, lt, mt):
+    """R3 at r = 4096 (d = 12) on each edge row of the card's test (beside a
+    row of small sizes), the port against the reference's
+    ``plan.merge_rows``."""
+    rows = _r3_edge_rows(np.random.default_rng(kind + lt), 4096, lt, mt)
+    hist = rows[[kind, 5]]
+    ref = jplan.merge_rows(jnp.asarray(hist), lt, mt)
+    got = tplan.merge_rows(_t(hist), lt, mt)
     _eq(got[0], ref[0])
     _eq(got[1], ref[1])
 
