@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together) and drives three paths of
+(one ``nvcc`` per source, all started together) and drives four paths of
 the port, each with the launch counters set to 0 just before it and read
 just after:
 
@@ -51,6 +51,19 @@ just after:
   ``torch.sort(digit, dim=1, stable=True)`` with the gather of keys (and
   values), the assigned histogram beside the gather of its tiles and one
   ``torch.bincount``;
+* slice S2 (its ``s2`` phase): ``repro_torch.lsd_sort`` on 2^28 uint32
+  keys at d = 5 (the reference's "CUB proxy", 7 passes), with an int32
+  index at d = 8 (4 passes; timed at kpb 1024 and 6912, beside the main
+  path's hybrid sort of the same records) and on 2^25 int64 keys at d = 8
+  (8 passes); ``core.segmented.counting_partition`` of 2^28 int32 ids into
+  256, 384 (uniform and Zipf-skewed: Kimi K2's experts) and 65 536
+  buckets; ``capacity_dispatch`` at Kimi K2's routing shape (2^17 tokens,
+  top-8 of 384 experts, capacity factor 1.25): each the first fused pass
+  held to its plain version (the 65 536-bucket one on the first 2^24
+  ids), the prologue histogram at the partition's shape too, every result
+  against ``torch.sort(stable=True)`` (and ``torch.bincount``), the
+  census (``passes + 1`` for LSD, 2 for a partition), times beside
+  ``torch.sort``, byte bounds and scratch bytes;
 * the out-of-core path, ``repro_torch.oocsort``, on 2^30 uint32 keys with an
   int32 index value (8 GiB of 8-byte records) in chunks of 2^28, kway 4,
   tile 4096 (4 runs, one merge round): ``merge_check`` holds the merge
@@ -1174,6 +1187,332 @@ def make_cases(torch, np, log2n, dev):
 
 
 # --------------------------------------------------------------------------
+# phase s2: the LSD sort and the single-pass partition (slice S2)
+# --------------------------------------------------------------------------
+
+#: the LSD cases: (label, key dtype, d, with an int32 index, log2 n below
+#: the main size, kpb values timed): the reference's "CUB proxy" (d = 5, 7
+#: passes); the main path's KV records at d = 8 (4 passes), timed at the
+#: reference's kpb 1024 and at the hybrid sort's 6912; 8-byte keys (8
+#: passes)
+LSD_CASES = (("uint32_d5", "uint32", 5, False, 0, (1024,)),
+             ("uint32_kv_d8", "uint32", 8, True, 0, (1024, 6912)),
+             ("int64_d8", "int64", 8, False, 3, (1024,)))
+#: the partition cases: (label, buckets, ids, fused pass held to its plain
+#: version): a join side's radix partition (256), Kimi K2's experts
+#: (configs/kimi_k2_1t_a32b.py: 384, d = 9) uniform and Zipf-skewed, and
+#: 65 536 buckets (the fused pass's wide variant)
+PARTITION_CASES = (("uniform_256", 256, "uniform", False),
+                   ("uniform_384", 384, "uniform", True),
+                   ("zipf_384", 384, "zipf", False),
+                   ("uniform_65536", 65536, "uniform", True))
+#: the ids the 65 536-bucket pass is held to its plain version on
+PARTITION_WIDE_CHECK = 1 << 24
+#: Kimi K2's routing: 384 experts, top-8, capacity factor 1.25; 2^17 tokens
+KIMI_EXPERTS, KIMI_TOP_K, KIMI_TOKENS = 384, 8, 1 << 17
+
+
+def first_pass(torch, run):
+    """Runs ``run()`` once, recording clones of its first fused pass's
+    arguments (``check_fused``'s record); the recording run is not a
+    counted one."""
+    from repro_torch.kernels import fused
+    rec = []
+    orig = fused.fused_counting_pass
+
+    def hook(src_keys, src_vals, alt_keys, alt_vals, sc, *tables, **kw):
+        if not rec:
+            rec.append(dict(src_keys=src_keys.clone(),
+                            src_vals=tuple(v.clone() for v in src_vals),
+                            sc=tuple(sc),
+                            tables=tuple(t.clone() for t in tables),
+                            kw=dict(kw)))
+        return orig(src_keys, src_vals, alt_keys, alt_vals, sc, *tables,
+                    **kw)
+
+    fused.fused_counting_pass = hook
+    try:
+        run()
+    finally:
+        fused.fused_counting_pass = orig
+    torch.cuda.synchronize()
+    need(rec, "no fused pass was recorded")
+    return rec[0]
+
+
+def _scratch(rec, n):
+    from repro_torch.kernels import fused
+    return fused.scratch_bytes(rec["tables"][0].numel(), rec["kw"]["r"], n,
+                               rec["src_keys"].shape[0])
+
+
+def lsd_case(torch, np, label, dtype, d, with_values, n, kpbs, reps, dev):
+    """One LSD sort: its first fused pass held to the plain version
+    (exact), the counted sort byte for byte against
+    ``torch.sort(stable=True)`` with its census (1 prologue histogram + one
+    fused pass per pass), then timed at each kpb beside ``torch.sort``, its
+    byte bound ``(2p+1)·n_pad·kb + 2p·n_pad·vb`` and its scratch bytes, and
+    (KV) beside the main path's hybrid sort of the same records."""
+    from repro_torch import hybrid_sort, lsd_sort
+    from repro_torch.core import bijection, plan
+    from repro_torch.kernels import COUNTS, fused, reset_counts
+    info = np.iinfo(dtype)
+    keys = torch.from_numpy(np.random.default_rng(1900 + d).integers(
+        info.min, info.max, n, dtype=dtype, endpoint=True)).to(dev)
+    vals = (torch.arange(n, dtype=torch.int32, device=dev) if with_values
+            else None)
+    rec = first_pass(torch, lambda: lsd_sort(keys, vals, d=d, kpb=kpbs[0]))
+    fres = check_fused(torch, rec, n, f"lsd_{label}_pass0", reps)
+    fres["scratch_bytes"] = _scratch(rec, n)
+    del rec
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts()
+    out = lsd_sort(keys, vals, d=d, kpb=kpbs[0], return_passes=True)
+    torch.cuda.synchronize()
+    counts = dict(COUNTS)
+    passes = out[-1]
+    ref_k, ref_i = reference_sort(torch, keys)
+    need(same_bits(torch, out[0], ref_k),
+         f"lsd {label}: keys differ from torch.sort(stable=True)")
+    if with_values:
+        need(torch.equal(out[1].to(torch.int64), ref_i),
+             f"lsd {label}: values differ from torch.sort indices")
+    del out, ref_k, ref_i
+    k = 8 * keys.element_size()
+    need(passes == -(-k // d), f"lsd {label}: {passes} passes of uniform "
+         f"keys, expected {-(-k // d)}")
+    need(counts["histogram"] == 1 and counts["fused_pass"] == passes,
+         f"lsd {label}: census {counts} against 1 histogram and {passes} "
+         f"fused passes")
+    lib_keys = (keys.view(bijection.carrier_dtype(keys.dtype))
+                if keys.dtype in (torch.uint32, torch.uint64) else keys)
+    lib = cuda_ms(torch, lambda: torch.sort(lib_keys, stable=True), reps)
+    kb, vb = keys.element_size(), (4 if with_values else 0)
+    timed = {}
+    for kpb in kpbs:
+        n_pad = fused.pad_length(n, kpb)
+        model = (2 * passes + 1) * n_pad * kb + 2 * passes * n_pad * vb
+        timed[kpb] = dict(
+            ms=cuda_ms(torch, lambda: lsd_sort(keys, vals, d=d, kpb=kpb),
+                       reps),
+            byte_model=model, bound_ms=bound_ms(model),
+            scratch_bytes=fused.scratch_bytes(
+                plan.max_region_blocks(n, kpb, 1), 1 << d, n, n_pad))
+    hybrid = (cuda_ms(torch, lambda: hybrid_sort(keys, vals), reps)
+              if with_values else None)
+    res = {"phase": "s2", "case": f"lsd_{label}", "n": n,
+           "dtype": str(keys.dtype).replace("torch.", ""), "d": d,
+           "values": with_values, "equal": True, "passes": passes,
+           "census": {"histogram": counts["histogram"],
+                      "fused_pass": counts["fused_pass"],
+                      "total": counts["histogram"] + counts["fused_pass"]},
+           "host_reads": counts["host_reads"],
+           "by_kpb": {str(kpb): v for kpb, v in timed.items()},
+           "torch_sort_ms": lib, "hybrid_sort_same_records_ms": hybrid,
+           "fused_pass0": fres}
+    emit(res)
+    return dict(res, launches=counts, fused=fres)
+
+
+def partition_ids(np, kind, buckets, m):
+    """2^log2n int32 bucket ids from a seed: uniform, or Zipf(1.2) ranks
+    (``repro_torch.data.zipf_keys``) folded into the buckets."""
+    from repro_torch.data import zipf_keys
+    if kind == "zipf":
+        z = zipf_keys(np.random.default_rng(1901), m, 1.2, np.uint32)
+        return ((z - np.uint32(1)) % np.uint32(buckets)).astype(np.int32)
+    return np.random.default_rng(1902 + buckets).integers(
+        0, buckets, m).astype(np.int32)
+
+
+def partition_case(torch, np, label, buckets, kind, check_pass, m, reps,
+                   dev):
+    """One ``counting_partition``: (optionally) its fused pass held to the
+    plain version, then the counted call against ``torch.sort(stable=
+    True)`` and ``torch.bincount`` with its census (2 launches), timed
+    beside those two calls, and again at kpb 6912 with the scratch bytes
+    of both.  Its bound: the ids read once, ``dest`` and ``perm`` written
+    once."""
+    from repro_torch.core import plan, segmented
+    from repro_torch.kernels import COUNTS, fused, reset_counts
+    ids = torch.from_numpy(partition_ids(np, kind, buckets, m)).to(dev)
+    fres = None
+    if check_pass:
+        # the plain version's dense (rows, r) tables at r = 65 536: hold
+        # the wide pass to it on the first 2^24 ids (16 388 rows, 8.6 GB)
+        cm = m if buckets <= 512 else min(m, PARTITION_WIDE_CHECK)
+        rec = first_pass(torch, lambda: segmented.counting_partition(
+            ids[:cm], buckets))
+        fres = check_fused(torch, rec, cm, f"partition_{label}", reps)
+        fres["scratch_bytes"] = _scratch(rec, cm)
+        del rec
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts()
+    part = segmented.counting_partition(ids, buckets)
+    torch.cuda.synchronize()
+    counts = dict(COUNTS)
+    want = torch.sort(ids, stable=True)
+    need(torch.equal(part.perm.to(torch.int64), want.indices),
+         f"partition {label}: perm != torch.sort(stable=True).indices")
+    need(torch.equal(part.dest[part.perm.long()], torch.arange(
+        m, dtype=torch.int32, device=dev)),
+         f"partition {label}: dest is not the inverse of perm")
+    need(torch.equal(part.counts, torch.bincount(
+        ids, minlength=buckets).to(torch.int32)),
+         f"partition {label}: counts != torch.bincount")
+    need(counts["histogram"] == 1 and counts["fused_pass"] == 1,
+         f"partition {label}: census {counts}, expected 1 + 1")
+    del part, want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(torch, lambda: segmented.counting_partition(ids, buckets),
+                 reps)
+    lib = cuda_ms(torch, lambda: (torch.sort(ids, stable=True),
+                                  torch.bincount(ids, minlength=buckets)),
+                  reps)
+    # the reference's kpb (1024, counting_partition's) and the hybrid
+    # sort's (6912, through plan.single_pass_partition)
+    r = 1 << max(1, (buckets - 1).bit_length())
+    by_kpb = {}
+    for kpb in (1024, 6912):
+        n_pad = fused.pad_length(m, kpb)
+        by_kpb[str(kpb)] = dict(
+            ms=ms if kpb == 1024 else cuda_ms(
+                torch, lambda: plan.single_pass_partition(ids, buckets,
+                                                          kpb=kpb), reps),
+            scratch_bytes=fused.scratch_bytes(
+                plan.max_region_blocks(m, kpb, 1), r, m, n_pad),
+            pass_byte_model_bound_ms=bound_ms(3 * n_pad * 4 + 2 * n_pad * 4))
+    res = {"phase": "s2", "case": f"partition_{label}", "n": m,
+           "buckets": buckets, "ids": kind, "equal": True,
+           "census": {"histogram": counts["histogram"],
+                      "fused_pass": counts["fused_pass"],
+                      "total": counts["histogram"] + counts["fused_pass"]},
+           "ms": ms, "torch_sort_bincount_ms": lib,
+           "bound_ms": bound_ms(12 * m + 4 * buckets), "by_kpb": by_kpb,
+           "largest_bucket": int(torch.bincount(ids).max()),
+           "fused_pass": fres}
+    emit(res)
+    return dict(res, launches=counts, fused=fres, ids=ids)
+
+
+def check_histogram_s2(torch, ids, width, reps):
+    """The prologue histogram at the partition's shape (the ids padded as
+    the single pass pads them), against its plain version, timed beside
+    ``torch.bincount``."""
+    from repro_torch.kernels import fused, histogram, ref
+    m = ids.numel()
+    (ck, _), _ = fused.make_ping_pong(ids, (), 1024)
+    err = max_abs_err(torch, [(histogram.digit_total(ck, m, 0, width),
+                               ref.radix_histogram_ref(
+                                   ck[:m].reshape(1, -1), 0, width)[0])])
+    need(err == 0, "histogram (partition) != plain")
+    res = dict(ms=cuda_ms(torch, lambda: histogram.digit_total(
+        ck, m, 0, width), reps),
+        plain_ms=cuda_ms(torch, lambda: ref.radix_histogram_ref(
+            ck[:m].reshape(1, -1), 0, width), max(1, reps // 2)),
+        library_ms=cuda_ms(torch, lambda: torch.bincount(
+            ids, minlength=1 << width), reps),
+        bound_ms=bound_ms(m * 4 + (1 << width) * 4), max_abs_err=err)
+    emit({"phase": "kernel_check", "kernel": "histogram", "keys":
+          "partition_ids", "n": m, "width": width, "equal": True, **res})
+    return res
+
+
+def dispatch_case(torch, reps, dev):
+    """``capacity_dispatch`` at Kimi K2's routing shape (2^17 tokens, top-8
+    of 384 experts from seeded router scores, the first 32 experts slightly
+    favoured so that some overflow; capacity ⌈1.25·m/384⌉), every field
+    against the same layout built from ``torch.sort(stable=True)``."""
+    import math
+    from repro_torch.core import segmented
+    from repro_torch.kernels import COUNTS, reset_counts
+    gen = torch.Generator(device=dev).manual_seed(2019)
+    scores = torch.rand((KIMI_TOKENS, KIMI_EXPERTS), generator=gen,
+                        device=dev)
+    scores[:, :32] += 0.01
+    ids = scores.topk(KIMI_TOP_K, dim=1).indices.to(torch.int32).reshape(-1)
+    del scores
+    m, e = ids.numel(), KIMI_EXPERTS
+    cap = math.ceil(1.25 * m / e)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = segmented.capacity_dispatch(ids, e, cap)
+    torch.cuda.synchronize()
+    counts = dict(COUNTS)
+    need(counts["histogram"] == 1 and counts["fused_pass"] == 1,
+         f"capacity_dispatch: census {counts}, expected 1 + 1")
+    perm = torch.sort(ids, stable=True).indices
+    cnt = torch.bincount(ids, minlength=e).to(torch.int32)
+    off = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
+    dest = torch.empty(m, dtype=torch.int32, device=dev)
+    dest[perm] = torch.arange(m, dtype=torch.int32, device=dev)
+    position = dest - off[ids.long()]
+    j = torch.arange(cap, dtype=torch.int32, device=dev)
+    src = (off[:, None] + j[None, :]).clamp(max=m - 1)
+    valid = j[None, :] < cnt[:, None]
+    gather = torch.where(valid, perm[src.long()].to(torch.int32), m)
+    want = segmented.CapacityDispatch(
+        gather_idx=gather, slot_valid=valid, position=position,
+        kept=position < cap, counts=cnt)
+    for name, a, b in zip(want._fields, got, want):
+        need(a.dtype == b.dtype and torch.equal(a, b),
+             f"capacity_dispatch: {name} != the torch.sort layout")
+    ms = cuda_ms(torch, lambda: segmented.capacity_dispatch(ids, e, cap),
+                 reps)
+    res = {"phase": "s2", "case": "capacity_dispatch_kimi_k2", "tokens":
+           KIMI_TOKENS, "top_k": KIMI_TOP_K, "experts": e, "n": m,
+           "capacity": cap, "dropped": int((~got.kept).sum()),
+           "largest_expert": int(cnt.max()), "equal": True,
+           "census": {"histogram": counts["histogram"],
+                      "fused_pass": counts["fused_pass"]}, "ms": ms}
+    emit(res)
+    return res
+
+
+def s2_phase(torch, np, log2n, reps, dev):
+    """Slice S2 on the card, each case its own counted run: the LSD sorts,
+    the partitions, ``capacity_dispatch``; returns the kernel rows' numbers
+    and the S2 launches, per path (``lsd``, ``partition``: the partitions
+    and the dispatch) and in all."""
+    launches = {g: {"histogram": 0, "fused_pass": 0}
+                for g in ("lsd", "partition", "partition_wide", "all")}
+
+    def count(groups, got):
+        for g in groups + ("all",):
+            for k in ("histogram", "fused_pass"):
+                launches[g][k] += got[k]
+
+    lsd = {}
+    for label, dtype, d, with_values, below, kpbs in LSD_CASES:
+        res = lsd_case(torch, np, label, getattr(np, dtype), d, with_values,
+                       1 << (log2n - below), kpbs, reps, dev)
+        count(("lsd",), res["launches"])
+        lsd[label] = res
+        torch.cuda.empty_cache()
+    parts = {}
+    hist = None
+    for label, buckets, kind, check_pass in PARTITION_CASES:
+        res = partition_case(torch, np, label, buckets, kind, check_pass,
+                             1 << log2n, reps, dev)
+        count(("partition_wide",) if buckets > 512 else ("partition",),
+              res["launches"])
+        if label == "uniform_384":
+            hist = check_histogram_s2(torch, res["ids"], 9, reps)
+        del res["ids"]
+        parts[label] = res
+        torch.cuda.empty_cache()
+    dispatch = dispatch_case(torch, reps, dev)
+    count(("partition",), dispatch["census"])
+    emit({"phase": "s2_summary", "launches": launches,
+          "lsd_ms": {k: v["by_kpb"] for k, v in lsd.items()},
+          "partition_ms": {k: v["ms"] for k, v in parts.items()},
+          "capacity_dispatch_ms": dispatch["ms"]})
+    return dict(lsd=lsd, parts=parts, histogram=hist, launches=launches)
+
+
+# --------------------------------------------------------------------------
 # phase 5: the out-of-core sort (paper §5) and its merge kernel
 # --------------------------------------------------------------------------
 
@@ -1629,6 +1968,14 @@ def run(args) -> int:
              f"a kernel of the d = {d} path was not launched: "
              f"{res['sort']['launches']}")
 
+    # slice S2: the LSD sort and the single-pass partition (their own
+    # counted runs)
+    s2 = s2_phase(torch, np, args.log2n, args.reps, dev)
+    need(all(v[k] > 0 for v in s2["launches"].values()
+             for k in ("histogram", "fused_pass")),
+         f"a kernel of the S2 path was not launched: {s2['launches']}")
+    torch.cuda.empty_cache()
+
     # phase 5: the out-of-core path (its own counted runs)
     kmerge_res, ooc_launches = ooc_phases(torch, np, args.log2n, args.reps)
     need(all(ooc_launches[k] > 0 for k in ("histogram", "fused_pass",
@@ -1682,6 +2029,31 @@ def run(args) -> int:
              replaces="src/repro/core/plan.py:250",
              launches=w16["sort"]["launches"]["merge_rows"],
              **_k(w16["merge_rows"]), bound_by="bytes", library_ms=None)]
+    lsd_kv = s2["lsd"]["uint32_kv_d8"]["fused"]
+    part = s2["parts"]["uniform_384"]["fused"]
+    part_wide = s2["parts"]["uniform_65536"]["fused"]
+    kernels += [
+        dict(name="histogram_s2", route="cuda", source=src + "histogram.cu",
+             replaces="src/repro/kernels/histogram.py:28",
+             launches=s2["launches"]["all"]["histogram"],
+             **_k(s2["histogram"]),
+             bound_by="bytes", library_ms=s2["histogram"]["library_ms"]),
+        dict(name="fused_pass_lsd", route="cuda",
+             source=src + "fused_pass.cu",
+             replaces="src/repro/kernels/fused.py:129",
+             launches=s2["launches"]["lsd"]["fused_pass"], **_k(lsd_kv),
+             bound_by="bytes", library_ms=None),
+        dict(name="fused_pass_partition", route="cuda",
+             source=src + "fused_pass.cu",
+             replaces="src/repro/kernels/fused.py:129",
+             launches=s2["launches"]["partition"]["fused_pass"], **_k(part),
+             bound_by="bytes", library_ms=None),
+        dict(name="fused_pass_partition_wide", route="cuda",
+             source=src + "fused_pass.cu",
+             replaces="src/repro/kernels/fused.py:129",
+             launches=s2["launches"]["partition_wide"]["fused_pass"],
+             **_k(part_wide),
+             bound_by="bytes", library_ms=None)]
     lib_src = {"bitonic_rows": ("bitonic_rows.cu", "bitonic.py:90"),
                "bitonic_rows_kv": ("bitonic_rows.cu", "bitonic.py:100"),
                "multisplit": ("multisplit.cu", "multisplit.py:87"),
@@ -1698,7 +2070,9 @@ def run(args) -> int:
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],
           "torch_sort_ms": main["torch_sort_ms"], "d9_sort_ms": d9["ms"],
           "d12_kv_sort_ms": wide[12]["sort"]["ms"],
-          "d16_sort_ms": wide[16]["sort"]["ms"]})
+          "d16_sort_ms": wide[16]["sort"]["ms"],
+          "lsd_kv_d8_ms": s2["lsd"]["uint32_kv_d8"]["by_kpb"],
+          "lsd_d5_ms": s2["lsd"]["uint32_d5"]["by_kpb"]})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

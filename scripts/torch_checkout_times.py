@@ -7,7 +7,7 @@ comes first on the path), naming this script by its path:
 
     cd <checkout> && python3 <repo>/scripts/torch_checkout_times.py \
         [merge] [zipf] [kv] [multisplit] [int64] [float32]
-        [histogram] [wide] [merge_rows]
+        [histogram] [wide] [merge_rows] [assigned] [lsd]
 
 ``merge`` times ``kway_merge_round`` on ``chip_smoke.py``'s out-of-core
 round (4 sorted runs of 2^28 uniform uint32 keys, an int32 index leaf,
@@ -31,8 +31,20 @@ int32 index at d = 12, 2^24 keys alone at d = 16, Table 3's (4,0) config
 otherwise) and each of their executed fused passes (the fused pass's wide
 variant) on the arguments a first run recorded; ``merge_rows`` times
 ``plan.merge_rows`` on the first (a_max, r) histogram of the 2^28 KV sort
-at d = 8 (r = 256) and of those two sorts (r = 4096, 65536).  Medians of
-the timed runs after a warm-up, CUDA events; one JSON line each.
+at d = 8 (r = 256) and of those two sorts (r = 4096, 65536); ``assigned``
+times ``assigned_histogram`` at ``chip_smoke.py``'s library shape
+((38 837, 6912) uniform uint32 tiles, 43 692 slots of which 4 855 padding,
+valid 0) at widths 1, 4, 8 (shift 24) and 9, and on (512, 6912) uint32
+tiles at widths 9, 12 and 16, with each result checked against the plain
+version; where the checkout's launch takes a table count, also one
+shared table per CTA against one per warp at widths 1, 8 and 9 on the
+library shape; ``lsd`` times ``lsd_sort`` on 2^28 uniform uint32 keys
+at d = 5 and with an int32 index at d = 8 (kpb 1024 and 6912), on 2^25
+int64 keys at d = 8, and ``counting_partition`` of 2^28 uniform ids into
+384 and 65 536 buckets (the latter also at kpb 6912; null where the
+checkout has no S2), each with a profiled run (device busy time and the
+largest device entries).  Medians of the timed runs after a warm-up, CUDA
+events; one JSON line each.
 """
 import json
 import os
@@ -127,17 +139,22 @@ def multisplit_times(dev):
 def profiled_sort(name, keys, vals=None):
     """Times ``hybrid_sort`` and profiles one more run: the device's busy
     time beside the run's wall time, and the largest device entries."""
+    from repro_torch import hybrid_sort
+    return profiled(name, lambda: hybrid_sort(keys, vals))
+
+
+def profiled(name, fn, reps=7):
+    """Times ``fn`` and profiles one more run, as ``profiled_sort``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import hybrid_sort
-    times = event_ms(lambda: hybrid_sort(keys, vals), 7)
+    times = event_ms(fn, reps)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        hybrid_sort(keys, vals)
+        fn()
         e.record()
         e.synchronize()
     rows = sorted(((getattr(ev, "self_device_time_total", 0) / 1e3, ev.count,
@@ -270,6 +287,93 @@ def merge_rows_times(dev):
     return out
 
 
+def assigned_times(dev):
+    import ctypes
+    from repro_torch.kernels import _build, assigned, ref
+    rng = np.random.default_rng(1614)
+    tiles = -(-(1 << 28) // 6912)
+    pad = -(-tiles // 8)
+    keys = torch.from_numpy(rng.integers(0, 2**32, (tiles, 6912),
+                                         dtype=np.uint32)).to(dev)
+    idx = torch.from_numpy(np.concatenate([
+        rng.permutation(tiles), np.zeros(pad, np.int64)]).astype(
+            np.int32)).to(dev)
+    valid = torch.cat([torch.ones(tiles, dtype=torch.int32, device=dev),
+                       torch.zeros(pad, dtype=torch.int32, device=dev)])
+    small = keys[:512]
+    sidx = torch.arange(512, dtype=torch.int32, device=dev)
+    sval = torch.ones_like(sidx)
+    out = {"slots": idx.numel()}
+    cases = [("lib", keys, idx, valid, 24, w) for w in (1, 4, 8)]
+    cases += [("lib", keys, idx, valid, 23, 9)]
+    cases += [("tiles512", small, sidx, sval, 32 - w - 1, w)
+              for w in (9, 12, 16)]
+    for label, k, i, v, shift, width in cases:
+        got = assigned.assigned_histogram(k, i, v, shift, width)
+        equal = bool(torch.equal(got, ref.assigned_histogram_ref(
+            k, i, v, shift, width)))
+        times = event_ms(lambda: assigned.assigned_histogram(
+            k, i, v, shift, width), 9)
+        out[f"{label}_w{width}_equal"] = equal
+        out[f"{label}_w{width}_median_ms"] = statistics.median(times)
+    if len(assigned._ARGS) == 13:           # the launch takes `tables`
+        fn = _build.function("histogram", "assigned_histogram_launch",
+                             assigned._ARGS)
+        b = keys.view(torch.int32)
+        for width in (1, 8, 9):
+            res = torch.empty((idx.numel(), 1 << width), dtype=torch.int32,
+                              device=dev)
+            want = ref.assigned_histogram_ref(keys, idx, valid, 32 - width,
+                                              width)
+            for tables in (1, 8):
+                def launch():
+                    rc = fn(b.data_ptr(), 4, tiles, 6912, idx.data_ptr(),
+                            valid.data_ptr(), idx.numel(), 32 - width, width,
+                            1, res.data_ptr(), tables, ctypes.c_void_p(
+                                torch.cuda.current_stream().cuda_stream))
+                    assert rc == 0, rc
+                launch()
+                key = f"tables{tables}_w{width}"
+                out[f"{key}_equal"] = bool(torch.equal(res, want))
+                out[f"{key}_median_ms"] = statistics.median(
+                    event_ms(launch, 9))
+    return out
+
+
+def lsd_times(dev):
+    try:
+        from repro_torch import lsd_sort
+        from repro_torch.core import plan, segmented
+    except ImportError:
+        return {"lsd_sort": None}
+    n = 1 << 28
+    keys = torch.from_numpy(np.random.default_rng(1905).integers(
+        0, 2**32, n, dtype=np.uint32)).to(dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    i64 = torch.from_numpy(np.random.default_rng(1908).integers(
+        -2**63, 2**63 - 1, 1 << 25, dtype=np.int64)).to(dev)
+    ids = torch.from_numpy(np.random.default_rng(1906).integers(
+        0, 384, n).astype(np.int32)).to(dev)
+    wide_ids = torch.from_numpy(np.random.default_rng(1907).integers(
+        0, 65536, n).astype(np.int32)).to(dev)
+    cases = {"d5_kpb1024": lambda: lsd_sort(keys, d=5, kpb=1024),
+             "kv_d8_kpb1024": lambda: lsd_sort(keys, vals, d=8, kpb=1024),
+             "kv_d8_kpb6912": lambda: lsd_sort(keys, vals, d=8, kpb=6912),
+             "int64_d8_kpb1024": lambda: lsd_sort(i64, d=8, kpb=1024),
+             "partition_384": lambda: segmented.counting_partition(ids, 384),
+             "partition_65536": lambda: segmented.counting_partition(
+                 wide_ids, 65536),
+             "partition_65536_kpb6912": lambda: plan.single_pass_partition(
+                 wide_ids, 65536, kpb=6912)}
+    out = {}
+    for label, fn in cases.items():
+        res = profiled(label, fn, 5)
+        out.update({f"{label}_{k}" if k in ("profiled_wall_ms",
+                                            "device_busy_ms", "top") else k:
+                    v for k, v in res.items()})
+    return out
+
+
 def main(argv=None) -> int:
     what = (argv if argv is not None else sys.argv[1:]) or ["merge", "zipf"]
     if not torch.cuda.is_available():
@@ -281,7 +385,8 @@ def main(argv=None) -> int:
                "multisplit": multisplit_times, "int64": int64_times,
                "float32": float32_times,
                "histogram": histogram_times, "wide": wide_times,
-               "merge_rows": merge_rows_times}[name](dev)
+               "merge_rows": merge_rows_times, "assigned": assigned_times,
+               "lsd": lsd_times}[name](dev)
         print(json.dumps({"phase": f"checkout_{name}",
                           "checkout": os.path.basename(os.getcwd()), **res}),
               flush=True)

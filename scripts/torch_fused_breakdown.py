@@ -3,7 +3,8 @@
 
 Run from the repository root:
 
-    python3 scripts/torch_fused_breakdown.py [--log2n 28] [--reps 3] [--wide]
+    python3 scripts/torch_fused_breakdown.py [--log2n 28] [--reps 3]
+        [--wide | --s2]
 
 It records the two fused passes of ``repro_torch.hybrid_sort`` on 2^log2n
 uniform uint32 keys with int32 values (``chip_smoke.capture``), then times
@@ -16,7 +17,12 @@ the kernel to its plain version).  With ``--wide`` it takes instead the
 passes of ``chip_smoke.py``'s wide-digit cases (2^(log2n - 2) keys with
 int32 values at d = 12, 2^(log2n - 4) keys alone at d = 16: the fused
 pass's wide variant, where "no look-back wait" leaves every row without a
-look-back).  Prints one JSON line per pass, then the card's name and power
+look-back).  With ``--s2`` it takes the first pass of ``chip_smoke.py``'s
+slice-S2 cases instead: ``lsd_sort`` of 2^log2n uniform uint32 keys at
+d = 5 (kpb 1024) and with an int32 index at d = 8 (kpb 1024 and 6912),
+whose next-pass counts all land in one (1, r) row, and
+``counting_partition`` of 2^log2n ids into 384 buckets (no next-pass
+count).  Prints one JSON line per pass, then the card's name and power
 limit.
 """
 from __future__ import annotations
@@ -59,12 +65,39 @@ def breakdown(torch, rec, reps):
     return out
 
 
+def s2_breakdown(torch, np, dev, log2n, reps):
+    from repro_torch import lsd_sort
+    from repro_torch.core import segmented
+    n = 1 << log2n
+    keys = torch.from_numpy(np.random.default_rng(1905).integers(
+        0, 2**32, n, dtype=np.uint32)).to(dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    ids = torch.from_numpy(chip_smoke.partition_ids(np, "uniform", 384, n)
+                           ).to(dev)
+    cases = (("lsd_d5_kpb1024", lambda: lsd_sort(keys, d=5, kpb=1024)),
+             ("lsd_kv_d8_kpb1024",
+              lambda: lsd_sort(keys, vals, d=8, kpb=1024)),
+             ("lsd_kv_d8_kpb6912",
+              lambda: lsd_sort(keys, vals, d=8, kpb=6912)),
+             ("partition_384",
+              lambda: segmented.counting_partition(ids, 384)))
+    for label, run in cases:
+        rec = chip_smoke.first_pass(torch, run)
+        chip_smoke.emit({"phase": "fused_breakdown", "pass": label, "n": n,
+                         "rows": rec["tables"][0].numel(),
+                         "ms": breakdown(torch, rec, reps)})
+        del rec
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log2n", type=int, default=28)
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--wide", action="store_true",
                         help="the wide-digit cases (d = 12 and 16)")
+    parser.add_argument("--s2", action="store_true",
+                        help="the LSD sort's and the partition's passes")
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -74,6 +107,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     chip_smoke.build()
+    if args.s2:
+        s2_breakdown(torch, np, dev, args.log2n, args.reps)
+        print(chip_smoke.nvidia_smi_line())
+        return 0
     if args.wide:
         from repro_torch.core.model import SortConfig
         cases = []

@@ -8,8 +8,8 @@ asks for the CPU; on the CPU the kernel engine runs the kernels' plain
 PyTorch versions.
 """
 from repro_torch.core import (ENGINES, OocStats, SortConfig, SortStats,
-                              default_config, hybrid_sort, oocsort,
+                              default_config, hybrid_sort, lsd_sort, oocsort,
                               resolve_engine)
 
-__all__ = ["hybrid_sort", "oocsort", "SortConfig", "SortStats", "OocStats",
-           "default_config", "ENGINES", "resolve_engine"]
+__all__ = ["hybrid_sort", "lsd_sort", "oocsort", "SortConfig", "SortStats",
+           "OocStats", "default_config", "ENGINES", "resolve_engine"]

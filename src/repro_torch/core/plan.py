@@ -1,7 +1,8 @@
-"""Pass plan: port of the parts of ``repro.core.plan`` that ``hybrid_sort``
-needs — digit windows, active-segment descriptors, block descriptor tables,
-R3 merge bookkeeping, the next-pass segment map and the positional
-segment/done updates after a pass.
+"""Pass plan: port of ``repro.core.plan`` as the sorts use it — digit
+windows (MSD and LSD), active-segment descriptors, block descriptor tables,
+R3 merge bookkeeping, the next-pass segment map, the positional
+segment/done updates after a pass, and ``single_pass_partition``, the one
+stable counting pass under ``segmented.counting_partition``.
 
 Every table keeps the reference's static size (a_max, g_max, ...) so it
 compares with the reference entry for entry.  The ``jnp.nonzero(size=)``
@@ -18,7 +19,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.core.ranks import (invert_permutation, resolve_engine,
+                                    stable_partition_dest)
+from repro_torch.kernels import _build, fused, ref
 from repro_torch.kernels.ops import static_nonzero
 
 _I32 = torch.int32
@@ -63,6 +66,19 @@ def digit_window(pass_idx: int, k: int, d: int, lo: int = 0) -> tuple:
     nlo = wlo - nwidth
     n2width = max(0, min(d, nlo - lo))
     return (wlo, width, nlo, nwidth, nlo - n2width, n2width)
+
+
+def lsd_digit_window(pass_idx: int, k: int, d: int, lo: int = 0) -> tuple:
+    """LSD windows of a pass in ``digit_window``'s layout: pass p covers
+    bits [lo + p·d, min(lo + (p+1)·d, k)), counted from the bottom; the
+    next pair is the pass after it (the fused histogram); the lookahead
+    slots are 0, since the LSD sort unrolls its passes and never elides
+    one mid-sort."""
+    wlo = lo + pass_idx * d
+    width = min(d, k - wlo)
+    nlo = wlo + width
+    nwidth = max(0, min(d, k - nlo))
+    return (wlo, width, nlo, nwidth, 0, 0)
 
 
 def active_segments(seg_id: torch.Tensor, done: torch.Tensor,
@@ -245,3 +261,55 @@ def apply_pass_bookkeeping(seg_id, done, asegs: ActiveSegments, hist,
     dm.index_add_(0, _or_dump(de, gd & (de >= 0) & (de <= n), n + 1), -ones)
     new_done = done | (torch.cumsum(dm[:n], 0, dtype=_I32) > 0)
     return new_seg, new_done
+
+
+def bincount(ids: torch.Tensor, length: int) -> torch.Tensor:
+    """(length,) int32 counts of ``ids`` as ``jnp.bincount(ids,
+    length=length)`` takes them: a negative id counts in bin 0, an id past
+    the end is dropped."""
+    slot = torch.clamp(ids.to(torch.int64), 0, length)
+    out = torch.zeros(length + 1, dtype=_I32, device=ids.device)
+    out.index_add_(0, slot, torch.ones_like(slot, dtype=_I32))
+    return out[:length]
+
+
+def single_pass_partition(ids: torch.Tensor, num_buckets: int,
+                          engine: str = None, kpb: int = 1024):
+    """One stable counting pass over flat bucket ids: ``(dest, perm,
+    counts)``, int32 — element i goes to slot ``dest[i]``, slot j holds
+    element ``perm[j]``, and ``counts`` has ``num_buckets`` entries.
+
+    The primitive under ``segmented.counting_partition`` (MoE dispatch,
+    length bucketing, shard partitioning).  ``engine="kernel"`` (``auto`` on
+    CUDA) runs the prologue histogram over ``bit_length(num_buckets - 1)``
+    bits and ONE fused launch over a single always-active segment, the
+    positions riding along as the value leaf; on CUDA a kernel that fails
+    to build or launch raises.  ``argsort`` / ``scan`` (and ``m == 0``) use
+    ``ranks.stable_partition_dest``.
+    """
+    engine = resolve_engine(engine, ids.device)
+    m = ids.shape[0]
+    ids = ids.to(_I32)
+    if m == 0 or engine != "kernel":
+        rank_engine = engine if engine != "kernel" else "argsort"
+        dest = stable_partition_dest(ids, num_buckets,
+                                     engine=rank_engine).to(_I32)
+        return dest, invert_permutation(dest), bincount(ids, num_buckets)
+
+    width = max(1, (num_buckets - 1).bit_length())
+    r = 1 << width
+    kpb = max(8, min(kpb, 1 << (m - 1).bit_length()))   # one block if m small
+    iota = torch.arange(m, dtype=_I32, device=ids.device)
+    (ck, cv), (ak, av) = fused.make_ping_pong(ids, (iota,), kpb)
+    hist0 = fused.initial_histogram(ck, m, 0, width, r, 1, kpb)
+    base_excl = torch.cumsum(hist0, 1, dtype=_I32) - hist0     # base 0
+    blocks = make_region_blocks(
+        torch.zeros(1, dtype=_I32, device=ids.device),
+        torch.full((1,), m, dtype=_I32, device=ids.device), m, kpb,
+        max_region_blocks(m, kpb, 1))
+    nsid = torch.zeros(r, dtype=_I32, device=ids.device)
+    _, (perm_pad,), _ = fused.fused_counting_pass(
+        ck, cv, ak, av, (0, width, 0, 0, 0, 0), *blocks, base_excl, nsid,
+        kpb=kpb, r=r, a_max=1, n=m)
+    perm = perm_pad[:m]
+    return invert_permutation(perm), perm, hist0[0, :num_buckets]

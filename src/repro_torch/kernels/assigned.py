@@ -5,9 +5,11 @@ Grid slot g histograms tile ``tile_idx[g]`` of the (T, KPB) keys and
 multiplies the row by ``valid[g]``: the launch pattern of paper §4.2, where
 a constant number of blocks each read their own assignment from a table.
 On a CUDA tensor it launches the ``assigned`` entry of
-``csrc/histogram.cu`` (each CTA loads its own descriptor from global
-memory, in place of the TPU's scalar prefetch; widths 1..16); on a CPU
-tensor it runs the plain version in ``ref.py``.
+``csrc/histogram.cu`` (one CTA per slot loads its own descriptor from
+global memory, in place of the TPU's scalar prefetch, and counts its tile
+as the prologue histogram counts: 16-byte loads, register runs of equal
+digits, shared tables; widths 1..16); on a CPU tensor it runs the plain
+version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.kernels.histogram import check_width
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
+_ARGS = [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P]
 
 
 def assigned_histogram(keys: torch.Tensor, tile_idx: torch.Tensor,
@@ -53,7 +55,8 @@ def assigned_histogram(keys: torch.Tensor, tile_idx: torch.Tensor,
     with torch.cuda.device(b.device):
         rc = fn(_build.ptr(b), b.element_size(), t, kpb,
                 _build.ptr(tile_idx), _build.ptr(valid), g, shift, width,
-                int(logical), _build.ptr(out), _build.stream_handle(b.device))
+                int(logical), _build.ptr(out), 0,      # tables by the width
+                _build.stream_handle(b.device))
     _build.check("histogram", rc)
     _build.COUNTS["assigned_hist"] += 1
     return out

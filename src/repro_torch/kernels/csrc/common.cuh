@@ -40,23 +40,11 @@ __device__ __forceinline__ unsigned lanemask_lt(int lane) {
 
 // Per-warp digit counts over contiguous warp slices: the block's keys
 // [0, count) are cut into one slice per warp (warp_slice_per), each walked
-// 32 keys at a time in index order.  warp_count_step adds one step's
-// digits to the warp's row of a zeroed (warps, r) shared table, merging a
-// warp's equal digits with __match_any_sync (the assigned histogram's
-// narrow path); warps_exclusive turns such a table into exclusive offsets
-// across the warps, per digit, and writes the block's histogram.
+// 32 keys at a time in index order; warps_exclusive turns a zeroed
+// (warps, r) table of such counts into exclusive offsets across the warps,
+// per digit, and writes the block's histogram.
 __device__ __forceinline__ int warp_slice_per(int count, int warps) {
   return ((count + warps - 1) / warps + 31) / 32 * 32;
-}
-
-__device__ __forceinline__ void warp_count_step(int* mine, unsigned d,
-                                                bool valid, int lane) {
-  const unsigned want = __ballot_sync(kFullMask, valid);
-  if (valid) {
-    const unsigned peers = __match_any_sync(want, d);
-    if (lane == __ffs(peers) - 1) mine[d] += __popc(peers);
-  }
-  __syncwarp();
 }
 
 __device__ __forceinline__ void warps_exclusive(int* wcnt, int warps, int r,

@@ -34,7 +34,13 @@
 // more merges all its next digits in a shared table first, so a long run
 // costs one global atomic per (run, next digit).  (Counting over the keys in
 // index order with warp-aggregated global atomics measured slower on every
-// pass; PERF.md.)
+// pass; PERF.md.)  Where the whole (a_max, r) histogram fits those shared
+// tables (a_max <= kMaxLongRuns: the LSD sort's and the single-pass
+// partition's one segment), every key counts into it with a shared atomic
+// and the row adds it to `hist` with one global atomic per non-zero bin:
+// otherwise every CTA's atomics land on the same r addresses of one row
+// (in the LSD sort at d = 5 that count took 30 of the pass's 37 ms on
+// 2^28 keys, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 //
 // The TPU ran the grid in order and carried the in-segment offsets in
 // scratch.  CTAs here run concurrently and in no order, so a CTA takes its
@@ -225,12 +231,14 @@ __device__ void move_leaf(const void* src, void* dst, long long off,
     d[static_cast<long long>(delta[sdig[j]]) + j] = st[j];
 }
 
-// Block-exclusive digit offsets and the ids of the long runs that count
-// next digits (runid[d] in [0, *nlong) or -1; longd[id] = d), by one warp.
-// Digit d's run counts next digits when `counting` and nsid[d] < a_max;
-// *live says whether any run of the row does.
+// Block-exclusive digit offsets and the ids of the long runs (long_run keys
+// or more) that count next digits (runid[d] in [0, *nlong) or -1;
+// longd[id] = d), by one warp.  Digit d's run counts next digits when
+// `counting` and nsid[d] < a_max; *live says whether any run of the row
+// does.
 __device__ void digit_scan(const int* bhist, const int* nsid, int a_max,
-                           bool counting, int r, int* bexcl, int* runid,
+                           bool counting, int long_run, int r, int* bexcl,
+                           int* runid,
                            int* longd, int* nlong, int* live, int lane) {
   const int per = (r + 31) / 32;
   const int d0 = min(r, lane * per), d1 = min(r, d0 + per);
@@ -240,7 +248,7 @@ __device__ void digit_scan(const int* bhist, const int* nsid, int a_max,
     sum += bhist[d];
     const bool counted = counting && bhist[d] > 0 && nsid[d] < a_max;
     any |= counted;
-    longs += counted && bhist[d] >= kLongRun;
+    longs += counted && bhist[d] >= long_run;
   }
   any = __any_sync(kFullMask, any);
   int incl = sum, lincl = longs;
@@ -261,7 +269,7 @@ __device__ void digit_scan(const int* bhist, const int* nsid, int a_max,
   for (int d = d0; d < d1; ++d) {
     bexcl[d] = run;
     run += bhist[d];
-    if (counting && bhist[d] >= kLongRun && nsid[d] < a_max &&
+    if (counting && bhist[d] >= long_run && nsid[d] < a_max &&
         lid < kMaxLongRuns) {
       runid[d] = lid;
       longd[lid] = d;
@@ -391,6 +399,8 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
   const int* bex = a.base_excl + static_cast<long long>(seg) * r;
   const int* nsid = a.next_sid + static_cast<long long>(seg) * r;
   const bool counting = a.nwidth > 0 || (a.lookahead && a.n2width > 0);
+  // the whole (a_max, r) next-pass histogram in the shared tables
+  const bool whole = a.a_max <= kMaxLongRuns;
   if (tid == 0)   // the value leaves are read last: have L2 fetch them now
     for (int v = 0; v < a.leaves.count; ++v)
       prefetch_l2(a.leaves.src[v], off * a.leaves.bytes[v],
@@ -428,8 +438,9 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
     publish(a.words + row_words + d,
             (reset ? L::kIncl : L::kAgg) | static_cast<W>(bhist[d]));
   if (warp == kPassWarps - 1)
-    digit_scan(bhist, nsid, a.a_max, counting, r, bexcl, runid, longd,
-               &s_nlong, &s_live, lane);
+    digit_scan(bhist, nsid, a.a_max, counting,
+               whole ? kpb + 1 : kLongRun, r, bexcl, runid, longd, &s_nlong,
+               &s_live, lane);
   for (int d = tid; d < r; d += blockDim.x) {
     long long carry = 0;
     if (!reset) {
@@ -452,7 +463,7 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
     sdig[s] = static_cast<D>(d);
   }
   __syncthreads();
-  const int table_ints = s_nlong * r;
+  const int table_ints = whole ? (s_live ? a.a_max * r : 0) : s_nlong * r;
   if (table_ints) {    // nh2 is clear: the rank's leaders cleared each mask
     for (int i = tid; i < table_ints; i += blockDim.x) nh1[i] = 0;
     __syncthreads();
@@ -469,7 +480,16 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
       key = staged[j];
       a.dst_keys[static_cast<long long>(delta[d]) + j] = key;
     }
-    if (s_live) {
+    if (s_live && whole) {
+      const int sid = valid ? nsid[d] : a.a_max;
+      if (sid < a.a_max) {
+        if (a.nwidth > 0)
+          atomicAdd(nh1 + sid * r + digit_at(key, a.nlo, a.nwidth, true), 1);
+        if (a.lookahead && a.n2width > 0)
+          atomicAdd(nh2 + sid * r + digit_at(key, a.n2lo, a.n2width, true),
+                    1);
+      }
+    } else if (s_live) {
       const int sid = valid ? nsid[d] : a.a_max;
       const int rid = valid ? runid[d] : -1;
       if (a.nwidth > 0)
@@ -482,12 +502,13 @@ __device__ void partition_row(const PassArgs<K, W>& a, int g, long long off,
     }
   }
   __syncthreads();
-  if (table_ints) {   // one global atomic per (long run, next digit)
+  if (table_ints) {   // one global atomic per (long run, next digit), or
+                      // per non-zero bin of the whole table
     for (int i = tid; i < table_ints; i += blockDim.x) {
       const int c1 = nh1[i], c2 = a.lookahead ? nh2[i] : 0;
       if (!(c1 | c2)) continue;
       const long long at =
-          static_cast<long long>(nsid[longd[i / r]]) * r + i % r;
+          whole ? i : static_cast<long long>(nsid[longd[i / r]]) * r + i % r;
       if (c1) atomicAdd(a.hist + at, c1);
       if (c2) atomicAdd(a.hist2 + at, c2);
     }

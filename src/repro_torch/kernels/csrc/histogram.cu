@@ -26,15 +26,21 @@
 //     bin to the (r,) total with one global atomic; rows mode (one CTA per
 //     tile) stores its row.
 //
-// assigned_kernel: CTA g reads its own descriptor (tile_idx[g], valid[g])
-// from global memory, counts that tile, and stores the row times valid[g].
-// This takes the place of the TPU's scalar prefetch; a slot with valid 0
-// reads no key.  Widths 1..8 count into per-warp sub-histograms merging a
-// warp's equal digits with __match_any_sync (count_digits; its redesign is
-// still to come); wider ones count with count_range (vector loads and
-// register runs) into one shared (r,) table, or past 14 bits straight into
-// the slot's zeroed output row, adding valid[g] per key (the same int32
-// wrap as the product).
+// assigned_kernel (redesigned for the H100).  Slot g histograms tile
+// tile_idx[g] and stores the row times valid[g]; a slot with valid 0 reads
+// no key.  Its bound is the same key read.  The first version counted
+// widths 1..8 with count_digits: one scalar 4-byte load per lane and 32-key
+// step, each step a __ballot_sync, a __match_any_sync and a __syncwarp, and
+// reached 13 % of the bound at the library phase's 43 692 slots of 6 912
+// keys.  Now every width counts as hist_kernel does, with count_range
+// (16-byte loads, register runs of equal digits, plain shared atomics),
+// into one shared (r,) table per CTA through 14 bits and past them with
+// global atomics into the slot's zeroed row, adding valid[g] per key (the
+// same int32 wrap as the product).  One CTA per slot: a warp per slot,
+// with or without a grid sized from the SM count taking slots in turn,
+// and one table per warp (the prologue's layout) measured no faster
+// (PERF.md), so the per-slot zeroing and barriers stay, hidden by
+// the other resident CTAs.
 //
 // Digit widths 10..16 (r = 1024 .. 65536), both kernels: the per-warp
 // sub-histograms would not fit past r = 512, so the CTA counts into one
@@ -54,23 +60,6 @@
 #include <algorithm>
 
 constexpr int kHistThreads = 256;
-
-// Adds the digits of keys[begin, end) to the CTA's zeroed (warps, r)
-// sub-histograms; warp w takes the 32-key steps w, w + warps, ...
-template <typename K, bool LOGICAL>
-__device__ void count_digits(const K* __restrict__ keys, long long begin,
-                             long long end, int shift, int width, int* sub) {
-  const int lane = threadIdx.x & 31;
-  int* mine = sub + (threadIdx.x >> 5) * (1 << width);
-  for (long long base = begin + (threadIdx.x & ~31); base < end;
-       base += blockDim.x) {
-    const long long i = base + lane;
-    const bool valid = i < end;
-    const unsigned d =
-        valid ? digit_at(keys[i], shift, width, LOGICAL) : 0u;
-    warp_count_step(mine, d, valid, lane);
-  }
-}
 
 // Shared (r,) tables per CTA by digit width: one per warp up to r = 512,
 // one for the CTA up to r = 16384 (64 KB), none past it (global atomics).
@@ -236,8 +225,17 @@ split_total_kernel(const K* __restrict__ keys, long long n, int head0,
     if (sub[d]) atomicAdd(out + part_lo + d, sub[d]);
 }
 
-// tables: 8 (per-warp, count_digits), 1 (one shared table, count_range)
-// or 0 (count_range into the zeroed row).
+// The slot's tile: [-T, -1] counts from the end, then any index is clamped
+// to [0, T-1], as the reference's block index is.
+__device__ __forceinline__ long long slot_begin(int t, int tiles, int kpb) {
+  if (t < 0) t += tiles;
+  return static_cast<long long>(min(max(t, 0), tiles - 1)) * kpb;
+}
+
+// CTA g counts slot g's tile into `tables` zeroed shared (r,) tables (8:
+// one per warp; 1: one for the CTA) and stores their sum times valid[g];
+// with tables 0 it counts straight into the slot's zeroed row, adding
+// valid[g] per key.
 template <typename K, bool LOGICAL>
 __global__ void __launch_bounds__(kHistThreads)
 assigned_kernel(const K* __restrict__ keys, int tiles, int kpb,
@@ -252,27 +250,14 @@ assigned_kernel(const K* __restrict__ keys, int tiles, int kpb,
     for (int d = threadIdx.x; d < r; d += blockDim.x) row[d] = 0;
     return;
   }
-  // the reference's block index: [-T, -1] counts from the end, then clamp
-  int t = tile_idx[blockIdx.x];
-  if (t < 0) t += tiles;
-  t = min(max(t, 0), tiles - 1);
-  const long long begin = static_cast<long long>(t) * kpb;
-  if (!tables) {   // valid[g] per key into the row, the same int32 wrap
-    for (int d = threadIdx.x; d < r; d += blockDim.x) row[d] = 0;
-    __syncthreads();
-    count_range<K, LOGICAL>(keys, begin, begin + kpb,
-                            head_at<K>(head0, begin), threadIdx.x, blockDim.x,
-                            shift, width, row, v);
-    return;
-  }
-  zero_sub(sub, r, tables);
+  const long long begin = slot_begin(tile_idx[blockIdx.x], tiles, kpb);
+  zero_sub(tables ? sub : row, r, tables ? tables : 1);
   __syncthreads();
-  if (tables > 1)
-    count_digits<K, LOGICAL>(keys, begin, begin + kpb, shift, width, sub);
-  else
-    count_range<K, LOGICAL>(keys, begin, begin + kpb,
-                            head_at<K>(head0, begin), threadIdx.x, blockDim.x,
-                            shift, width, sub);
+  int* mine = !tables ? row : sub + (tables > 1 ? threadIdx.x >> 5 : 0) * r;
+  count_range<K, LOGICAL>(keys, begin, begin + kpb, head_at<K>(head0, begin),
+                          threadIdx.x, blockDim.x, shift, width, mine,
+                          tables ? 1 : v);
+  if (!tables) return;
   __syncthreads();
   for (int d = threadIdx.x; d < r; d += blockDim.x)  // int32 wrap, as XLA
     row[d] = static_cast<int>(
@@ -351,20 +336,22 @@ extern "C" int radix_histogram_launch(const void* keys, long long n,
 }
 
 // keys: (tiles, kpb); tile_idx, valid: (slots,) int32; out: (slots,
-// 2^width) int32, every row written.
+// 2^width) int32, every row written.  tables: 0 picks by the width (one
+// shared table through 14 bits, none past); 1 or 8 (one per warp, through
+// 12 bits) force a count, for timing the two side by side
+// (scripts/torch_checkout_times.py).
 extern "C" int assigned_histogram_launch(const void* keys, int key_bytes,
                                          int tiles, int kpb,
                                          const int* tile_idx,
                                          const int* valid, int slots,
                                          int shift, int width, int logical,
-                                         void* out, void* stream) {
+                                         void* out, int tables,
+                                         void* stream) {
   if (width < 1 || width > 16 || tiles < 1 || kpb < 1 || slots < 1 ||
+      (tables != 0 && tables != 1 && tables != kHistThreads / 32) ||
       reinterpret_cast<uintptr_t>(keys) % key_bytes)
     return cudaErrorInvalidValue;
-  // per-warp tables (count_digits) up to width 8, as before; past it one
-  // shared table while it fits, then none
-  const int tables = width <= 8 ? kHistThreads / 32
-                     : width <= kCtaTableMaxWidth ? 1 : 0;
+  if (!tables) tables = width <= kCtaTableMaxWidth ? 1 : 0;
   const size_t shmem = sizeof(int) * tables * (1 << width);
   const int head0 = static_cast<int>(
       ((16 - (reinterpret_cast<uintptr_t>(keys) & 15)) & 15) / key_bytes);

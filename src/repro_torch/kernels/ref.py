@@ -54,13 +54,15 @@ def _digits(keys: torch.Tensor, lo: int, width: int,
     """int64 digits ``(keys >> lo) & (2^width - 1)`` of a signed tensor:
     an arithmetic shift, or a logical one for the bits of an unsigned key
     (``signed_bits``).  A shift past the top bit gives the sign fill or 0,
-    as XLA's shifts do."""
+    as XLA's shifts do.  The shifted key keeps the key's own width, so a
+    digit wider than the key (8-bit keys at widths 9..16) has no bits
+    above it, as on the card."""
     bits = keys.element_size() * 8
     # widen before masking: an 8-bit mask does not fit an int8 carrier
     d = keys.to(torch.int64) >> min(lo, 63)
     if logical and lo:
         d = d & ((1 << (bits - lo)) - 1) if lo < bits else torch.zeros_like(d)
-    return d & ((1 << width) - 1)
+    return d & ((1 << min(width, bits)) - 1)
 
 
 def radix_histogram_ref(keys: torch.Tensor, shift: int,

@@ -743,16 +743,18 @@ def test_fused_kernel_widths_equal_plain(dev, key_bytes, d):
 
 
 @pytest.mark.parametrize("case", ["all_equal", "later_pass", "narrow_last",
-                                  "one_region"])
+                                  "one_region", "all_equal_wide_table"])
 def test_fused_kernel_cases_equal_plain(dev, case):
-    """All-equal keys (one digit run per row: long-run tables), a later
-    pass (many short regions), the last pass narrower than d, and one
+    """All-equal keys (one digit run per row; a_max 2: the whole next-pass
+    table in shared memory), the same with a_max 40 (long-run tables), a
+    later pass (many short regions), the last pass narrower than d, and one
     region of many rows (a long look-back chain) at KPB 6912."""
     from repro_torch.kernels import fused, ref
     rng = np.random.default_rng(len(case))
     n = 1 << 18
-    if case == "all_equal":
-        inp = _pass_inputs(dev, rng, n, 4, 8, 0, [(0, n)], 2, 6912, 1,
+    if case in ("all_equal", "all_equal_wide_table"):
+        inp = _pass_inputs(dev, rng, n, 4, 8, 0, [(0, n)],
+                           2 if case == "all_equal" else 40, 6912, 1,
                            all_equal=True)
     elif case == "later_pass":
         cuts = np.sort(rng.choice(np.arange(1, n), 300, replace=False))
@@ -1143,3 +1145,148 @@ def test_hybrid_sort_main_path_moves_leaves_in_the_kernel(dev):
                        want.values)
     assert torch.equal(out_i.to(torch.int64), want.indices)
     assert torch.equal(out_w, want.indices * 3)
+
+
+# ---- the assigned histogram, redesigned (prologue tables, count_range) ----
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.uint16,
+                                   torch.int16, torch.uint32, torch.int32,
+                                   torch.uint64, torch.int64], ids=str)
+@pytest.mark.parametrize("kpb", [1, 7, 1030, 6911])
+def test_assigned_kernel_every_width_and_key_size(dev, dtype, kpb):
+    """Widths 1..16 on 1-, 2-, 4- and 8-byte signed and unsigned keys (a
+    shift inside the key and one past its top bit: logical against
+    arithmetic), valid 0 / 1 / 3 / -1, negative and out-of-range tile
+    indices, tiles that start off a 16-byte boundary and one-key tiles,
+    against the plain version, exactly."""
+    from repro_torch.kernels import assigned, ref
+    rng = np.random.default_rng(kpb)
+    tiles = 40
+    keys = _rows_input(rng, (tiles, kpb), dtype).to(dev)
+    keys[3] = keys[3, :1]                        # one all-equal tile
+    idx = np.concatenate([rng.permutation(tiles), rng.permutation(tiles),
+                          [-1, -tiles, -tiles - 1, tiles, 2**31 - 1,
+                           -2**31, 5]])
+    tile_idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.choice(
+        np.array([0, 1, 3, -1], np.int32), idx.size)).to(dev)
+    bits = 8 * keys.element_size()
+    for width in range(1, 17):
+        for shift in (max(0, bits - width - 1), bits - 2):
+            got = assigned.assigned_histogram(keys, tile_idx, valid, shift,
+                                              width)
+            want = ref.assigned_histogram_ref(keys, tile_idx, valid, shift,
+                                              width)
+            assert torch.equal(got, want), (width, shift)
+
+
+def test_assigned_kernel_many_slots(dev):
+    """200 000 slots over 3 000 short tiles, random valid and tile indices,
+    against the plain version."""
+    from repro_torch.kernels import assigned, ref
+    rng = np.random.default_rng(19)
+    keys = torch.from_numpy(_keys(rng, 3000 * 256)).to(dev).view(
+        torch.uint32).reshape(3000, 256)
+    slots = 200000
+    tile_idx = torch.from_numpy(rng.integers(-3000, 3000, slots)
+                                .astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.integers(-1, 3, slots).astype(np.int32)
+                             ).to(dev)
+    for width in (1, 4, 8, 9):
+        assert torch.equal(
+            assigned.assigned_histogram(keys, tile_idx, valid, 20, width),
+            ref.assigned_histogram_ref(keys, tile_idx, valid, 20, width))
+
+
+# ---- slice S2: the LSD sort and the single-pass partition on the card ----
+
+def _census():
+    from repro_torch.kernels import COUNTS
+    torch.cuda.synchronize()
+    return COUNTS["histogram"], COUNTS["fused_pass"]
+
+
+@pytest.mark.parametrize("d", [4, 5, 8, 9, 12])
+@pytest.mark.parametrize("dtype", [np.uint32, np.float32, np.int64])
+def test_lsd_sort_on_card_equals_torch_sort(dev, d, dtype):
+    from repro_torch import lsd_sort
+    from repro_torch.core import bijection
+    from repro_torch.kernels import reset_counts
+    rng = np.random.default_rng(d)
+    n = 300001
+    bits = rng.integers(0, 2**63, n, dtype=np.uint64)
+    x = bits.astype(np.uint32).view(dtype) if dtype != np.int64 else \
+        bits.view(np.int64)
+    keys = torch.from_numpy(x).to(dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    reset_counts()
+    out_k, out_v, passes = lsd_sort(keys, vals, d=d, return_passes=True)
+    assert _census() == (1, passes)
+    carrier = bijection.sortable(bijection.to_ordered_bits(keys))
+    want = torch.sort(carrier, stable=True)
+    got = bijection.sortable(bijection.to_ordered_bits(out_k))
+    assert torch.equal(got, want.values)
+    assert torch.equal(out_v.to(torch.int64), want.indices)
+    cpu = lsd_sort(x, np.arange(n, dtype=np.int32), d=d, engine="argsort",
+                   device="cpu")
+    assert _bits_equal(out_k.cpu(), cpu[0]) and torch.equal(out_v.cpu(),
+                                                           cpu[1])
+
+
+def test_lsd_sort_on_card_edge_cases(dev):
+    """All-equal keys (no pass, one prologue launch), duplicates, a narrow
+    live window, 8-bit keys and the leaf limit (no fallback)."""
+    from repro_torch import lsd_sort
+    from repro_torch.kernels import reset_counts
+    rng = np.random.default_rng(5)
+    for x, d in ((np.full(5000, 9, np.uint32), 5),
+                 (rng.integers(0, 6, 70000).astype(np.uint32), 5),
+                 (rng.integers(0, 2**32, 70000, dtype=np.uint32) &
+                  np.uint32(0x0FF0F000), 4),
+                 (rng.integers(0, 256, 70000).astype(np.uint8), 8)):
+        reset_counts()
+        got_k, got_v, passes = lsd_sort(x, np.arange(x.size), d=d,
+                                        return_passes=True)
+        assert _census() == (1, passes)
+        order = np.argsort(x, kind="stable")
+        assert np.array_equal(got_k.cpu().numpy(), x[order])
+        assert np.array_equal(got_v.cpu().numpy(), order)
+    leaves = tuple(torch.zeros(100, dtype=torch.int32, device=dev)
+                   for _ in range(9))
+    with pytest.raises(ValueError, match="value leaves"):
+        lsd_sort(torch.arange(100, device=dev), leaves)
+
+
+@pytest.mark.parametrize("num_buckets", [1, 2, 255, 256, 384, 512, 513,
+                                         4096, 65536])
+def test_counting_partition_on_card_equals_torch_sort(dev, num_buckets):
+    from repro_torch.core import segmented
+    from repro_torch.kernels import reset_counts
+    rng = np.random.default_rng(num_buckets)
+    m = 500003
+    ids = rng.integers(0, num_buckets, m).astype(np.int32)
+    ids[::5] = num_buckets - 1                   # the sentinel's digit
+    t = torch.from_numpy(ids).to(dev)
+    reset_counts()
+    part = segmented.counting_partition(t, num_buckets)
+    assert _census() == (1, 1)
+    want = torch.sort(t, stable=True).indices
+    assert torch.equal(part.perm.to(torch.int64), want)
+    assert torch.equal(part.dest[part.perm.long()],
+                       torch.arange(m, dtype=torch.int32, device=dev))
+    assert torch.equal(part.counts, torch.bincount(
+        t, minlength=num_buckets).to(torch.int32))
+    cpu = segmented.counting_partition(torch.from_numpy(ids), num_buckets,
+                                       engine="argsort")
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(part, cpu))
+
+
+def test_capacity_dispatch_on_card_equals_cpu(dev):
+    from repro_torch.core import segmented
+    rng = np.random.default_rng(3)
+    ids = (rng.zipf(1.3, 1 << 16).clip(1, 384) - 1).astype(np.int32)
+    got = segmented.capacity_dispatch(torch.from_numpy(ids).to(dev), 384,
+                                      200)
+    want = segmented.capacity_dispatch(torch.from_numpy(ids), 384, 200,
+                                       engine="argsort")
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
