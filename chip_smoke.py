@@ -59,9 +59,9 @@ just after:
   256, 384 (uniform and Zipf-skewed: Kimi K2's experts) and 65 536
   buckets; ``capacity_dispatch`` at Kimi K2's routing shape (2^17 tokens,
   top-8 of 384 experts, capacity factor 1.25): each the first fused pass
-  held to its plain version (the 65 536-bucket one on the first 2^24
-  ids), the prologue histogram at the partition's shape too, every result
-  against ``torch.sort(stable=True)`` (and ``torch.bincount``), the
+  held to its plain version, the prologue histogram at the partition's
+  shape too, every result (at each kpb timed) against
+  ``torch.sort(stable=True)`` (and ``torch.bincount``), the
   census (``passes + 1`` for LSD, 2 for a partition), times beside
   ``torch.sort``, byte bounds and scratch bytes;
 * the out-of-core path, ``repro_torch.oocsort``, on 2^30 uint32 keys with an
@@ -1206,8 +1206,6 @@ PARTITION_CASES = (("uniform_256", 256, "uniform", False),
                    ("uniform_384", 384, "uniform", True),
                    ("zipf_384", 384, "zipf", False),
                    ("uniform_65536", 65536, "uniform", True))
-#: the ids the 65 536-bucket pass is held to its plain version on
-PARTITION_WIDE_CHECK = 1 << 24
 #: Kimi K2's routing: 384 experts, top-8, capacity factor 1.25; 2^17 tokens
 KIMI_EXPERTS, KIMI_TOP_K, KIMI_TOKENS = 384, 8, 1 << 17
 
@@ -1250,7 +1248,8 @@ def lsd_case(torch, np, label, dtype, d, with_values, n, kpbs, reps, dev):
     """One LSD sort: its first fused pass held to the plain version
     (exact), the counted sort byte for byte against
     ``torch.sort(stable=True)`` with its census (1 prologue histogram + one
-    fused pass per pass), then timed at each kpb beside ``torch.sort``, its
+    fused pass per pass), then at each kpb checked the same way and timed
+    beside ``torch.sort``, its
     byte bound ``(2p+1)·n_pad·kb + 2p·n_pad·vb`` and its scratch bytes, and
     (KV) beside the main path's hybrid sort of the same records."""
     from repro_torch import hybrid_sort, lsd_sort
@@ -1273,12 +1272,21 @@ def lsd_case(torch, np, label, dtype, d, with_values, n, kpbs, reps, dev):
     counts = dict(COUNTS)
     passes = out[-1]
     ref_k, ref_i = reference_sort(torch, keys)
-    need(same_bits(torch, out[0], ref_k),
-         f"lsd {label}: keys differ from torch.sort(stable=True)")
-    if with_values:
-        need(torch.equal(out[1].to(torch.int64), ref_i),
-             f"lsd {label}: values differ from torch.sort indices")
-    del out, ref_k, ref_i
+
+    def check(out, kpb):
+        need(same_bits(torch, out[0], ref_k),
+             f"lsd {label} kpb {kpb}: keys differ from torch.sort(stable="
+             f"True)")
+        if with_values:
+            need(torch.equal(out[1].to(torch.int64), ref_i),
+                 f"lsd {label} kpb {kpb}: values differ from torch.sort "
+                 f"indices")
+
+    check(out, kpbs[0])
+    del out
+    for kpb in kpbs[1:]:
+        check(lsd_sort(keys, vals, d=d, kpb=kpb, return_passes=True), kpb)
+    del ref_k, ref_i
     k = 8 * keys.element_size()
     need(passes == -(-k // d), f"lsd {label}: {passes} passes of uniform "
          f"keys, expected {-(-k // d)}")
@@ -1331,21 +1339,18 @@ def partition_case(torch, np, label, buckets, kind, check_pass, m, reps,
     """One ``counting_partition``: (optionally) its fused pass held to the
     plain version, then the counted call against ``torch.sort(stable=
     True)`` and ``torch.bincount`` with its census (2 launches), timed
-    beside those two calls, and again at kpb 6912 with the scratch bytes
-    of both.  Its bound: the ids read once, ``dest`` and ``perm`` written
-    once."""
+    beside those two calls, and again at kpb 6912, checked the same way,
+    with the scratch bytes of both.  Its bound: the ids read once,
+    ``dest`` and ``perm`` written once."""
     from repro_torch.core import plan, segmented
     from repro_torch.kernels import COUNTS, fused, reset_counts
     ids = torch.from_numpy(partition_ids(np, kind, buckets, m)).to(dev)
     fres = None
     if check_pass:
-        # the plain version's dense (rows, r) tables at r = 65 536: hold
-        # the wide pass to it on the first 2^24 ids (16 388 rows, 8.6 GB)
-        cm = m if buckets <= 512 else min(m, PARTITION_WIDE_CHECK)
         rec = first_pass(torch, lambda: segmented.counting_partition(
-            ids[:cm], buckets))
-        fres = check_fused(torch, rec, cm, f"partition_{label}", reps)
-        fres["scratch_bytes"] = _scratch(rec, cm)
+            ids, buckets))
+        fres = check_fused(torch, rec, m, f"partition_{label}", reps)
+        fres["scratch_bytes"] = _scratch(rec, m)
         del rec
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1353,18 +1358,25 @@ def partition_case(torch, np, label, buckets, kind, check_pass, m, reps,
     part = segmented.counting_partition(ids, buckets)
     torch.cuda.synchronize()
     counts = dict(COUNTS)
-    want = torch.sort(ids, stable=True)
-    need(torch.equal(part.perm.to(torch.int64), want.indices),
-         f"partition {label}: perm != torch.sort(stable=True).indices")
-    need(torch.equal(part.dest[part.perm.long()], torch.arange(
-        m, dtype=torch.int32, device=dev)),
-         f"partition {label}: dest is not the inverse of perm")
-    need(torch.equal(part.counts, torch.bincount(
-        ids, minlength=buckets).to(torch.int32)),
-         f"partition {label}: counts != torch.bincount")
+    want = torch.sort(ids, stable=True).indices
+    want_counts = torch.bincount(ids, minlength=buckets).to(torch.int32)
+    iota = torch.arange(m, dtype=torch.int32, device=dev)
+
+    def check(dest, perm, cnt, kpb):
+        need(torch.equal(perm.to(torch.int64), want),
+             f"partition {label} kpb {kpb}: perm != torch.sort(stable="
+             f"True).indices")
+        need(torch.equal(dest[perm.long()], iota),
+             f"partition {label} kpb {kpb}: dest is not the inverse of perm")
+        need(torch.equal(cnt, want_counts),
+             f"partition {label} kpb {kpb}: counts != torch.bincount")
+
+    check(part.dest, part.perm, part.counts, 1024)
     need(counts["histogram"] == 1 and counts["fused_pass"] == 1,
          f"partition {label}: census {counts}, expected 1 + 1")
-    del part, want
+    del part
+    check(*plan.single_pass_partition(ids, buckets, kpb=6912), 6912)
+    del want, want_counts, iota
     torch.cuda.empty_cache()
     ms = cuda_ms(torch, lambda: segmented.counting_partition(ids, buckets),
                  reps)

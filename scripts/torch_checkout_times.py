@@ -8,13 +8,15 @@ comes first on the path), naming this script by its path:
     cd <checkout> && python3 <repo>/scripts/torch_checkout_times.py \
         [merge] [zipf] [kv] [multisplit] [int64] [float32]
         [histogram] [wide] [merge_rows] [assigned] [lsd]
+        [assigned_pair=<other checkout>]
 
 ``merge`` times ``kway_merge_round`` on ``chip_smoke.py``'s out-of-core
 round (4 sorted runs of 2^28 uniform uint32 keys, an int32 index leaf,
 kway 4) at tiles 4096 and 256 and checks the output is sorted; ``zipf``
 times ``hybrid_sort`` on ``chip_smoke.py``'s Zipf(1.5) 2^26 uint32 keys
 and ``kv`` on 2^28 uniform uint32 keys with an int32 index (the main
-path's KV case), outside that script's run; ``multisplit`` times
+path's KV case, Table 3's (4,0) config), outside that script's run, and
+each of its executed fused passes on the arguments a first run recorded; ``multisplit`` times
 ``tile_multisplit`` and ``tile_multisplit_kv`` on tiles of the shape of
 ``chip_smoke.py``'s library phase ((38 837, 6912) uniform uint32 keys,
 int32 values, shift 24, width 8); ``int64`` times ``hybrid_sort`` on 2^25
@@ -35,15 +37,16 @@ at d = 8 (r = 256) and of those two sorts (r = 4096, 65536); ``assigned``
 times ``assigned_histogram`` at ``chip_smoke.py``'s library shape
 ((38 837, 6912) uniform uint32 tiles, 43 692 slots of which 4 855 padding,
 valid 0) at widths 1, 4, 8 (shift 24) and 9, and on (512, 6912) uint32
-tiles at widths 9, 12 and 16, with each result checked against the plain
-version; where the checkout's launch takes a table count, also one
-shared table per CTA against one per warp at widths 1, 8 and 9 on the
-library shape; ``lsd`` times ``lsd_sort`` on 2^28 uniform uint32 keys
+tiles at widths 9, 12 and 16 (41 timed runs each, the others 9), with
+each result checked against the plain version; ``lsd`` times ``lsd_sort`` on 2^28 uniform uint32 keys
 at d = 5 and with an int32 index at d = 8 (kpb 1024 and 6912), on 2^25
 int64 keys at d = 8, and ``counting_partition`` of 2^28 uniform ids into
 384 and 65 536 buckets (the latter also at kpb 6912; null where the
 checkout has no S2), each with a profiled run (device busy time and the
-largest device entries).  Medians of the timed runs after a warm-up, CUDA
+largest device entries); ``assigned_pair=<other checkout>`` launches this
+checkout's assigned histogram and the other's (built from its source) in
+one process, alternating, at the library shape (width 8) and on the
+(512, 6912) tiles at widths 9, 12 and 16.  Medians of the timed runs after a warm-up, CUDA
 events; one JSON line each.
 """
 import json
@@ -117,8 +120,10 @@ def kv_times(dev):
     keys = torch.from_numpy(rng.integers(0, 2**32, 1 << 28,
                                          dtype=np.uint32)).to(dev)
     vals = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
+    out = pass_times(recorded(keys, vals, None), "kv", 9)
+    torch.cuda.empty_cache()
     times = event_ms(lambda: hybrid_sort(keys, vals), 5)
-    return {"kv_ms": times, "kv_median_ms": statistics.median(times)}
+    return {**out, "kv_ms": times, "kv_median_ms": statistics.median(times)}
 
 
 def multisplit_times(dev):
@@ -233,6 +238,19 @@ def recorded(keys, vals, cfg):
     return rec
 
 
+def pass_times(rec, label, reps):
+    """Each recorded fused pass timed on its own arguments."""
+    from repro_torch.kernels import fused
+    out = {}
+    for i, (k, v, sc, tables, kw) in enumerate(rec["passes"]):
+        ak, av = torch.empty_like(k), tuple(torch.empty_like(x) for x in v)
+        times = event_ms(lambda: fused.fused_counting_pass(
+            k, v, ak, av, sc, *tables, **kw), reps)
+        out[f"{label}_pass{i}_ms"] = times
+        out[f"{label}_pass{i}_median_ms"] = statistics.median(times)
+    return out
+
+
 def wide_inputs(dev, d):
     """chip_smoke.py's wide-digit case at d: (keys, values or None, cfg)."""
     from repro_torch.core.model import SortConfig
@@ -246,19 +264,10 @@ def wide_inputs(dev, d):
 
 def wide_times(dev):
     from repro_torch import hybrid_sort
-    from repro_torch.kernels import fused
     out = {}
     for d in (12, 16):
         keys, vals, cfg = wide_inputs(dev, d)
-        rec = recorded(keys, vals, cfg)
-        for i, (k, v, sc, tables, kw) in enumerate(rec["passes"]):
-            ak, av = torch.empty_like(k), tuple(torch.empty_like(x)
-                                                for x in v)
-            times = event_ms(lambda: fused.fused_counting_pass(
-                k, v, ak, av, sc, *tables, **kw), 5)
-            out[f"d{d}_pass{i}_ms"] = times
-            out[f"d{d}_pass{i}_median_ms"] = statistics.median(times)
-        del rec
+        out.update(pass_times(recorded(keys, vals, cfg), f"d{d}", 5))
         torch.cuda.empty_cache()
         times = event_ms(lambda: hybrid_sort(keys, vals, cfg=cfg), 5)
         out[f"d{d}_sort_ms"] = times
@@ -288,8 +297,7 @@ def merge_rows_times(dev):
 
 
 def assigned_times(dev):
-    import ctypes
-    from repro_torch.kernels import _build, assigned, ref
+    from repro_torch.kernels import assigned, ref
     rng = np.random.default_rng(1614)
     tiles = -(-(1 << 28) // 6912)
     pad = -(-tiles // 8)
@@ -313,30 +321,73 @@ def assigned_times(dev):
         equal = bool(torch.equal(got, ref.assigned_histogram_ref(
             k, i, v, shift, width)))
         times = event_ms(lambda: assigned.assigned_histogram(
-            k, i, v, shift, width), 9)
+            k, i, v, shift, width), 9 if label == "lib" else 41)
         out[f"{label}_w{width}_equal"] = equal
         out[f"{label}_w{width}_median_ms"] = statistics.median(times)
-    if len(assigned._ARGS) == 13:           # the launch takes `tables`
-        fn = _build.function("histogram", "assigned_histogram_launch",
-                             assigned._ARGS)
-        b = keys.view(torch.int32)
-        for width in (1, 8, 9):
-            res = torch.empty((idx.numel(), 1 << width), dtype=torch.int32,
-                              device=dev)
-            want = ref.assigned_histogram_ref(keys, idx, valid, 32 - width,
-                                              width)
-            for tables in (1, 8):
-                def launch():
-                    rc = fn(b.data_ptr(), 4, tiles, 6912, idx.data_ptr(),
-                            valid.data_ptr(), idx.numel(), 32 - width, width,
-                            1, res.data_ptr(), tables, ctypes.c_void_p(
-                                torch.cuda.current_stream().cuda_stream))
-                    assert rc == 0, rc
-                launch()
-                key = f"tables{tables}_w{width}"
-                out[f"{key}_equal"] = bool(torch.equal(res, want))
-                out[f"{key}_median_ms"] = statistics.median(
-                    event_ms(launch, 9))
+    return out
+
+
+def assigned_pair_times(dev, other):
+    """This checkout's assigned histogram and ``other``'s (its
+    ``csrc/histogram.cu`` built here with this checkout's flags; the two
+    launchers must share one C signature), launched in one process in 12
+    rounds of 41 timed runs each, which one goes first alternating."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import _build, assigned, ref
+    src = os.path.join(os.path.abspath(other), "src", "repro_torch",
+                       "kernels", "csrc")
+    so = _build.build_dir().parent / "other" / "histogram.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", src, "-o",
+                    str(so), os.path.join(src, "histogram.cu")], check=True,
+                   capture_output=True)
+    fns = {"this": _build.function("histogram", "assigned_histogram_launch",
+                                   assigned._ARGS),
+           "other": ctypes.CDLL(str(so)).assigned_histogram_launch}
+    fns["other"].argtypes, fns["other"].restype = assigned._ARGS, ctypes.c_int
+    rng = np.random.default_rng(1614)
+    tiles = -(-(1 << 28) // 6912)
+    keys = torch.from_numpy(rng.integers(0, 2**32, (tiles, 6912),
+                                         dtype=np.uint32)).to(dev)
+    idx = torch.from_numpy(rng.permutation(tiles).astype(np.int32)).to(dev)
+    cases = [("lib", keys, idx, 24, 8)]
+    cases += [("tiles512", keys[:512], torch.arange(
+        512, dtype=torch.int32, device=dev), 32 - w - 1, w)
+        for w in (9, 12, 16)]
+    out = {"other": other, "rounds": 12}
+    for label, k, i, shift, width in cases:
+        v = torch.ones_like(i)
+        b = k.view(torch.int32)
+        res = torch.empty((i.numel(), 1 << width), dtype=torch.int32,
+                          device=dev)
+        want = ref.assigned_histogram_ref(k, i, v, shift, width)
+
+        def launch(fn):
+            rc = fn(b.data_ptr(), 4, b.shape[0], b.shape[1], i.data_ptr(),
+                    v.data_ptr(), i.numel(), shift, width, 1,
+                    res.data_ptr(), ctypes.c_void_p(
+                        torch.cuda.current_stream().cuda_stream))
+            assert rc == 0, rc
+
+        times = {"this": [], "other": []}
+        for who, fn in fns.items():
+            res.zero_()
+            launch(fn)
+            out[f"{label}_w{width}_{who}_equal"] = bool(torch.equal(res,
+                                                                    want))
+        for rnd in range(12):
+            for who in (("this", "other") if rnd % 2 == 0
+                        else ("other", "this")):
+                times[who].append(statistics.median(event_ms(
+                    lambda: launch(fns[who]), 41)))
+        key = f"{label}_w{width}"
+        out[f"{key}_this_ms"] = times["this"]
+        out[f"{key}_other_ms"] = times["other"]
+        out[f"{key}_this_median_ms"] = statistics.median(times["this"])
+        out[f"{key}_other_median_ms"] = statistics.median(times["other"])
+        out[f"{key}_this_faster_rounds"] = sum(
+            a < c for a, c in zip(times["this"], times["other"]))
     return out
 
 
@@ -381,12 +432,14 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     for name in what:
-        res = {"merge": merge_times, "zipf": zipf_times, "kv": kv_times,
+        name, _, arg = name.partition("=")
+        fn = {"merge": merge_times, "zipf": zipf_times, "kv": kv_times,
                "multisplit": multisplit_times, "int64": int64_times,
                "float32": float32_times,
                "histogram": histogram_times, "wide": wide_times,
                "merge_rows": merge_rows_times, "assigned": assigned_times,
-               "lsd": lsd_times}[name](dev)
+               "lsd": lsd_times, "assigned_pair": assigned_pair_times}[name]
+        res = fn(dev, arg) if arg else fn(dev)
         print(json.dumps({"phase": f"checkout_{name}",
                           "checkout": os.path.basename(os.getcwd()), **res}),
               flush=True)

@@ -32,35 +32,8 @@ import torch
 from repro_torch.core import bijection, interop, model, plan
 from repro_torch.core.hybrid import _MOVABLE, live_bit_window
 from repro_torch.core.ranks import resolve_engine, stable_partition_dest
-from repro_torch.kernels import fused
 
 _I32 = torch.int32
-
-
-def _lsd_sort_kernel(ukeys, leaves, d: int, k: int, kpb: int, lo: int,
-                     nd: int):
-    """The kernel engine: one prologue histogram, then ``nd`` fused passes
-    over one always-active segment; the written buffers become the current
-    ones after each pass, and its next-pass histogram the next base."""
-    n = ukeys.shape[0]
-    dev = ukeys.device
-    r = 1 << d
-    (ck, cv), (ak, av) = fused.make_ping_pong(ukeys, leaves, kpb)
-    blocks = plan.make_region_blocks(
-        torch.zeros(1, dtype=_I32, device=dev),
-        torch.full((1,), n, dtype=_I32, device=dev), n, kpb,
-        plan.max_region_blocks(n, kpb, 1))
-    nsid = torch.zeros(r, dtype=_I32, device=dev)    # every digit: segment 0
-    w0 = min(d, max(k - lo, 1))
-    seg_hist = fused.initial_histogram(ck, n, lo, w0, r, 1, kpb)
-    for p in range(nd):
-        base_excl = torch.cumsum(seg_hist, 1, dtype=_I32) - seg_hist
-        nk, nv, hist_next = fused.fused_counting_pass(
-            ck, cv, ak, av, plan.lsd_digit_window(p, k, d, lo=lo), *blocks,
-            base_excl, nsid, kpb=kpb, r=r, a_max=1, n=n)
-        ak, av, ck, cv = ck, cv, nk, nv
-        seg_hist = hist_next.reshape(1, r)
-    return ck[:n], [v[:n] for v in cv]
 
 
 def _lsd_sort_torch(ukeys, leaves, d: int, k: int, engine: str, lo: int,
@@ -126,7 +99,8 @@ def lsd_sort(keys, values: Any = None, d: int = 5,
     # torch cannot scatter or gather uint16/32/64: move their signed twins
     leaves = [v.view(_MOVABLE.get(v.dtype, v.dtype)) for v in leaves]
     if engine == "kernel":
-        ukeys, leaves = _lsd_sort_kernel(carrier, leaves, d, hi, kpb, lo, nd)
+        ukeys, leaves, _ = plan.one_segment_passes(carrier, leaves, d, hi,
+                                                   kpb, lo, nd)
     else:
         ukeys, leaves = _lsd_sort_torch(carrier, leaves, d, hi, engine, lo,
                                         nd)

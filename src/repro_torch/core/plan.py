@@ -273,6 +273,35 @@ def bincount(ids: torch.Tensor, length: int) -> torch.Tensor:
     return out[:length]
 
 
+def one_segment_passes(ukeys, leaves, d: int, k: int, kpb: int, lo: int,
+                       nd: int):
+    """The kernel engine of ``lsd_sort`` and ``single_pass_partition``: one
+    prologue histogram, then ``nd`` fused passes over one always-active
+    segment [0, n) (base 0, every sub-bucket to segment 0, a_max 1) at the
+    LSD windows of ``lsd_digit_window``.  After each pass the written
+    buffers become the current ones and its next-pass histogram the next
+    base.  Returns ``(keys, leaves, hist0)``: the first (1, 2^d) base."""
+    n = ukeys.shape[0]
+    dev = ukeys.device
+    r = 1 << d
+    (ck, cv), (ak, av) = fused.make_ping_pong(ukeys, leaves, kpb)
+    blocks = make_region_blocks(
+        torch.zeros(1, dtype=_I32, device=dev),
+        torch.full((1,), n, dtype=_I32, device=dev), n, kpb,
+        max_region_blocks(n, kpb, 1))
+    nsid = torch.zeros(r, dtype=_I32, device=dev)    # every digit: segment 0
+    w0 = min(d, max(k - lo, 1))
+    hist0 = seg_hist = fused.initial_histogram(ck, n, lo, w0, r, 1, kpb)
+    for p in range(nd):
+        base_excl = torch.cumsum(seg_hist, 1, dtype=_I32) - seg_hist
+        nk, nv, hist_next = fused.fused_counting_pass(
+            ck, cv, ak, av, lsd_digit_window(p, k, d, lo=lo), *blocks,
+            base_excl, nsid, kpb=kpb, r=r, a_max=1, n=n)
+        ak, av, ck, cv = ck, cv, nk, nv
+        seg_hist = hist_next.reshape(1, r)
+    return ck[:n], [v[:n] for v in cv], hist0
+
+
 def single_pass_partition(ids: torch.Tensor, num_buckets: int,
                           engine: str = None, kpb: int = 1024):
     """One stable counting pass over flat bucket ids: ``(dest, perm,
@@ -297,19 +326,8 @@ def single_pass_partition(ids: torch.Tensor, num_buckets: int,
         return dest, invert_permutation(dest), bincount(ids, num_buckets)
 
     width = max(1, (num_buckets - 1).bit_length())
-    r = 1 << width
     kpb = max(8, min(kpb, 1 << (m - 1).bit_length()))   # one block if m small
     iota = torch.arange(m, dtype=_I32, device=ids.device)
-    (ck, cv), (ak, av) = fused.make_ping_pong(ids, (iota,), kpb)
-    hist0 = fused.initial_histogram(ck, m, 0, width, r, 1, kpb)
-    base_excl = torch.cumsum(hist0, 1, dtype=_I32) - hist0     # base 0
-    blocks = make_region_blocks(
-        torch.zeros(1, dtype=_I32, device=ids.device),
-        torch.full((1,), m, dtype=_I32, device=ids.device), m, kpb,
-        max_region_blocks(m, kpb, 1))
-    nsid = torch.zeros(r, dtype=_I32, device=ids.device)
-    _, (perm_pad,), _ = fused.fused_counting_pass(
-        ck, cv, ak, av, (0, width, 0, 0, 0, 0), *blocks, base_excl, nsid,
-        kpb=kpb, r=r, a_max=1, n=m)
-    perm = perm_pad[:m]
+    _, (perm,), hist0 = one_segment_passes(ids, (iota,), width, width, kpb,
+                                           0, 1)
     return invert_permutation(perm), perm, hist0[0, :num_buckets]

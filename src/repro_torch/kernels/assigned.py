@@ -22,7 +22,7 @@ from repro_torch.kernels.histogram import check_width
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P]
+_ARGS = [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
 
 
 def assigned_histogram(keys: torch.Tensor, tile_idx: torch.Tensor,
@@ -55,7 +55,7 @@ def assigned_histogram(keys: torch.Tensor, tile_idx: torch.Tensor,
     with torch.cuda.device(b.device):
         rc = fn(_build.ptr(b), b.element_size(), t, kpb,
                 _build.ptr(tile_idx), _build.ptr(valid), g, shift, width,
-                int(logical), _build.ptr(out), 0,      # tables by the width
+                int(logical), _build.ptr(out),
                 _build.stream_handle(b.device))
     _build.check("histogram", rc)
     _build.COUNTS["assigned_hist"] += 1

@@ -232,16 +232,18 @@ __device__ __forceinline__ long long slot_begin(int t, int tiles, int kpb) {
   return static_cast<long long>(min(max(t, 0), tiles - 1)) * kpb;
 }
 
-// CTA g counts slot g's tile into `tables` zeroed shared (r,) tables (8:
-// one per warp; 1: one for the CTA) and stores their sum times valid[g];
-// with tables 0 it counts straight into the slot's zeroed row, adding
-// valid[g] per key.
+// CTA g counts slot g's tile into one zeroed shared (r,) table through 14
+// bits and stores it times valid[g]; past 14 bits it counts straight into
+// the slot's zeroed row, adding valid[g] per key.  The two counts are
+// separate calls, so each knows its table's address space (through one
+// pointer that may be either, the 16-bit count measured 5 % slower on
+// an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 template <typename K, bool LOGICAL>
 __global__ void __launch_bounds__(kHistThreads)
 assigned_kernel(const K* __restrict__ keys, int tiles, int kpb,
                 const int* __restrict__ tile_idx,
                 const int* __restrict__ valid, int shift, int width,
-                int* __restrict__ out, int head0, int tables) {
+                int* __restrict__ out, int head0) {
   extern __shared__ int sub[];
   const int r = 1 << width;
   int* row = out + static_cast<long long>(blockIdx.x) * r;
@@ -251,18 +253,22 @@ assigned_kernel(const K* __restrict__ keys, int tiles, int kpb,
     return;
   }
   const long long begin = slot_begin(tile_idx[blockIdx.x], tiles, kpb);
-  zero_sub(tables ? sub : row, r, tables ? tables : 1);
+  const long long head = head_at<K>(head0, begin);
+  if (width > kCtaTableMaxWidth) {
+    zero_sub(row, r, 1);
+    __syncthreads();
+    count_range<K, LOGICAL>(keys, begin, begin + kpb, head, threadIdx.x,
+                            blockDim.x, shift, width, row, v);
+    return;
+  }
+  zero_sub(sub, r, 1);
   __syncthreads();
-  int* mine = !tables ? row : sub + (tables > 1 ? threadIdx.x >> 5 : 0) * r;
-  count_range<K, LOGICAL>(keys, begin, begin + kpb, head_at<K>(head0, begin),
-                          threadIdx.x, blockDim.x, shift, width, mine,
-                          tables ? 1 : v);
-  if (!tables) return;
+  count_range<K, LOGICAL>(keys, begin, begin + kpb, head, threadIdx.x,
+                          blockDim.x, shift, width, sub);
   __syncthreads();
   for (int d = threadIdx.x; d < r; d += blockDim.x)  // int32 wrap, as XLA
-    row[d] = static_cast<int>(
-        static_cast<unsigned>(sum_sub(sub, r, d, tables)) *
-        static_cast<unsigned>(v));
+    row[d] = static_cast<int>(static_cast<unsigned>(sub[d]) *
+                              static_cast<unsigned>(v));
 }
 
 REPRO_ERROR_STRING
@@ -336,23 +342,18 @@ extern "C" int radix_histogram_launch(const void* keys, long long n,
 }
 
 // keys: (tiles, kpb); tile_idx, valid: (slots,) int32; out: (slots,
-// 2^width) int32, every row written.  tables: 0 picks by the width (one
-// shared table through 14 bits, none past); 1 or 8 (one per warp, through
-// 12 bits) force a count, for timing the two side by side
-// (scripts/torch_checkout_times.py).
+// 2^width) int32, every row written.
 extern "C" int assigned_histogram_launch(const void* keys, int key_bytes,
                                          int tiles, int kpb,
                                          const int* tile_idx,
                                          const int* valid, int slots,
                                          int shift, int width, int logical,
-                                         void* out, int tables,
-                                         void* stream) {
+                                         void* out, void* stream) {
   if (width < 1 || width > 16 || tiles < 1 || kpb < 1 || slots < 1 ||
-      (tables != 0 && tables != 1 && tables != kHistThreads / 32) ||
       reinterpret_cast<uintptr_t>(keys) % key_bytes)
     return cudaErrorInvalidValue;
-  if (!tables) tables = width <= kCtaTableMaxWidth ? 1 : 0;
-  const size_t shmem = sizeof(int) * tables * (1 << width);
+  const size_t shmem =
+      width <= kCtaTableMaxWidth ? sizeof(int) * (1 << width) : 0;
   const int head0 = static_cast<int>(
       ((16 - (reinterpret_cast<uintptr_t>(keys) & 15)) & 15) / key_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -363,7 +364,7 @@ extern "C" int assigned_histogram_launch(const void* keys, int key_bytes,
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<slots, kHistThreads, shmem, s>>>(
         static_cast<const K*>(keys), tiles, kpb, tile_idx, valid, shift,
-        width, static_cast<int*>(out), head0, tables);
+        width, static_cast<int*>(out), head0);
   })
   return static_cast<int>(cudaGetLastError());
 }

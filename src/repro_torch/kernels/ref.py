@@ -99,9 +99,9 @@ def fused_counting_pass_ref(src_keys, src_vals, alt_keys, alt_vals, sc,
     Writes the partitioned keys and values into the alternate buffers and
     returns ``(alt_keys, alt_vals, hist[, hist2])``.  ``sc`` is the 6-tuple
     of digit windows.  Every row's lanes are flattened (the rows partition
-    ``[0, n)``), ranked stably per (row, digit) with one stable sort, and
-    given their in-segment carry from an exclusive sum over the earlier rows
-    of their region.
+    ``[0, n)``) and ranked stably per (region, digit) with one stable
+    sort, which gives each its in-segment carry over the earlier rows of
+    its region and its rank in its own row at once.
     """
     lo, width, nlo, nwidth, n2lo, n2width = (list(sc) + [0, 0])[:6]
     dev = src_keys.device
@@ -119,25 +119,24 @@ def fused_counting_pass_ref(src_keys, src_vals, alt_keys, alt_vals, sc,
              for _ in range(2 if lookahead else 1)]
     a_row, a_key = row[act], keys[act]
     digit = _digits(a_key, lo, width)
-    comp = a_row * r + digit
-    bh = torch.zeros(nrows * r, dtype=torch.int64, device=dev)
-    bh.index_add_(0, comp, torch.ones_like(comp))
-    order = torch.sort(comp, stable=True).indices
-    group_start = torch.cumsum(bh, 0) - bh
-    rank = torch.empty_like(comp)
-    rank[order] = (torch.arange(comp.shape[0], device=dev) -
-                   group_start[comp[order]])
-    # in-segment carry: exclusive running sum of block histograms over the
-    # earlier rows of the same region (a region restarts where reset == 1)
-    bh = bh.reshape(nrows, r)
-    excl = torch.cumsum(bh, 0) - bh
+    # a lane's slot in its segment's digit bucket: its stable rank among the
+    # active lanes of the same (region, digit), the in-segment carry over
+    # the region's earlier rows and the rank in its own row at once (a
+    # region restarts where reset == 1; lanes run in row order)
     idx = torch.arange(nrows, device=dev)
     first = torch.cummax(torch.where(reset[rows] == 1, idx,
                                      torch.zeros_like(idx)), 0).values
-    carry = excl - excl[first]
+    group, order = torch.sort(first[a_row] * r + digit, stable=True)
+    is_start = torch.ones_like(group, dtype=torch.bool)
+    is_start[1:] = group[1:] != group[:-1]
+    lane = torch.arange(group.shape[0], device=dev)
+    rank = torch.empty_like(group)
+    rank[order] = lane - torch.cummax(torch.where(
+        is_start, lane, torch.zeros_like(lane)), 0).values
+    del group, order, is_start, lane
     a_seg = seg[rows][a_row]
     dest[act] = (base_excl.reshape(-1).to(torch.int64)[a_seg * r + digit] +
-                 carry[a_row, digit] + rank)
+                 rank)
 
     alt_keys[dest] = keys
     for sv, dv in zip(src_vals, alt_vals):

@@ -1209,6 +1209,7 @@ def _census():
 @pytest.mark.parametrize("d", [4, 5, 8, 9, 12])
 @pytest.mark.parametrize("dtype", [np.uint32, np.float32, np.int64])
 def test_lsd_sort_on_card_equals_torch_sort(dev, d, dtype):
+    """At the reference's kpb (1024) and the hybrid sort's (6912)."""
     from repro_torch import lsd_sort
     from repro_torch.core import bijection
     from repro_torch.kernels import reset_counts
@@ -1219,18 +1220,20 @@ def test_lsd_sort_on_card_equals_torch_sort(dev, d, dtype):
         bits.view(np.int64)
     keys = torch.from_numpy(x).to(dev)
     vals = torch.arange(n, dtype=torch.int32, device=dev)
-    reset_counts()
-    out_k, out_v, passes = lsd_sort(keys, vals, d=d, return_passes=True)
-    assert _census() == (1, passes)
     carrier = bijection.sortable(bijection.to_ordered_bits(keys))
     want = torch.sort(carrier, stable=True)
-    got = bijection.sortable(bijection.to_ordered_bits(out_k))
-    assert torch.equal(got, want.values)
-    assert torch.equal(out_v.to(torch.int64), want.indices)
     cpu = lsd_sort(x, np.arange(n, dtype=np.int32), d=d, engine="argsort",
                    device="cpu")
-    assert _bits_equal(out_k.cpu(), cpu[0]) and torch.equal(out_v.cpu(),
-                                                           cpu[1])
+    for kpb in (1024, 6912):
+        reset_counts()
+        out_k, out_v, passes = lsd_sort(keys, vals, d=d, kpb=kpb,
+                                        return_passes=True)
+        assert _census() == (1, passes)
+        got = bijection.sortable(bijection.to_ordered_bits(out_k))
+        assert torch.equal(got, want.values)
+        assert torch.equal(out_v.to(torch.int64), want.indices)
+        assert _bits_equal(out_k.cpu(), cpu[0]) and torch.equal(
+            out_v.cpu(), cpu[1])
 
 
 def test_lsd_sort_on_card_edge_cases(dev):
@@ -1260,7 +1263,9 @@ def test_lsd_sort_on_card_edge_cases(dev):
 @pytest.mark.parametrize("num_buckets", [1, 2, 255, 256, 384, 512, 513,
                                          4096, 65536])
 def test_counting_partition_on_card_equals_torch_sort(dev, num_buckets):
-    from repro_torch.core import segmented
+    """``counting_partition`` (kpb 1024), then the single pass at the
+    hybrid sort's kpb 6912."""
+    from repro_torch.core import plan, segmented
     from repro_torch.kernels import reset_counts
     rng = np.random.default_rng(num_buckets)
     m = 500003
@@ -1279,6 +1284,11 @@ def test_counting_partition_on_card_equals_torch_sort(dev, num_buckets):
     cpu = segmented.counting_partition(torch.from_numpy(ids), num_buckets,
                                        engine="argsort")
     assert all(torch.equal(a.cpu(), b) for a, b in zip(part, cpu))
+    reset_counts()
+    dest, perm, counts = plan.single_pass_partition(t, num_buckets, kpb=6912)
+    assert _census() == (1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dest, perm, counts), (part.dest, part.perm, part.counts)))
 
 
 def test_capacity_dispatch_on_card_equals_cpu(dev):
