@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together) and drives four paths of
+(one ``nvcc`` per source, all started together) and drives five paths of
 the port, each with the launch counters set to 0 just before it and read
 just after:
 
@@ -64,6 +64,24 @@ just after:
   ``torch.sort(stable=True)`` (and ``torch.bincount``), the
   census (``passes + 1`` for LSD, 2 for a partition), times beside
   ``torch.sort``, byte bounds and scratch bytes;
+* slice S4 (its ``dist`` phase): ``make_distributed_sort`` over
+  ``LocalMesh(8)`` on the card, 2^28 uint32 keys with int32 values (n_local
+  2^25, slack 2) at 1 and 4 chunks on uniform, clustered (4 clusters) and
+  Zipf(1.5) keys: the valid prefixes against ``torch.sort(stable=True)``,
+  the values a permutation pairing each key, no overflow, one attempt,
+  the census per launch site (chunk sorts, exchange partitions,
+  compaction), no shard past 2·n/8 keys for uniform and clustered keys;
+  the exchange's 8-bucket and the compaction's 2-bucket fused passes held
+  to their plain versions on one shard's data; the whole sort and each
+  stage timed (CUDA events) beside ``hybrid_sort`` and ``torch.sort`` of
+  the same records, with peak memory and the reference's link bytes;
+  smaller cases at 2^24 (int16 and float32 with ±0 / ±inf / NaN payloads
+  with values, int64 at 2^23, a constant key, ``num_chunks > n_local``,
+  the reference's adversarial retry converging at slack 1.2 and
+  exhausting at 0.5); a one-rank NCCL ``ProcessGroupMesh`` on 2^26
+  records byte-equal to ``LocalMesh(1)``; ``length_bucketed_batches`` on
+  2^20 lengths by its host, ``ooc`` and ``dist`` routes, each a valid
+  packing equal to the host route's;
 * the out-of-core path, ``repro_torch.oocsort``, on 2^30 uint32 keys with an
   int32 index value (8 GiB of 8-byte records) in chunks of 2^28, kway 4,
   tile 4096 (4 runs, one merge round): ``merge_check`` holds the merge
@@ -1525,6 +1543,523 @@ def s2_phase(torch, np, log2n, reps, dev):
 
 
 # --------------------------------------------------------------------------
+# slice S4: the distributed sample sort on a local shard mesh
+# --------------------------------------------------------------------------
+
+#: the distributed sort's main case: 2^log2n uint32 keys with int32 values
+#: (the main path's 2 GiB of 8-byte records) over 8 shards on the card
+DIST_SHARDS = 8
+#: each stage is one function of ``core.distributed``, timed by events
+DIST_STAGES = (("local_sorts", "_sort_chunk"),
+               ("splitters", "_local_sample"),
+               ("splitters", "_make_splitters"),
+               ("dest_shards", "_dest_shards"),
+               ("exchange_partitions", "_pack"),
+               ("merge", "_merge_runs"),
+               ("compaction", "_compact"))
+#: the launch sites counted apart in a counted run
+DIST_SITES = (("chunk_sorts", "_sort_chunk"), ("exchange", "_pack"),
+              ("compaction", "_compact"))
+
+
+def dist_keys(np, kind, n, nshards):
+    """uint32 keys from ``repro_torch.data``: uniform and Zipf(1.5) drawn
+    per shard from its own seed, in threads (numpy's generators release
+    the GIL while they draw); clustered (4 clusters) in one call, so every
+    shard draws around the same 4 centres."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.data import clustered_keys, entropy_keys, zipf_keys
+    if kind == "clustered":
+        return clustered_keys(2020, n, clusters=4)
+    per = n // nshards
+
+    def one(s):
+        if kind == "uniform":
+            return entropy_keys(2021 + s, per, 0)
+        return zipf_keys(2041 + s, per, a=1.5)
+
+    with ThreadPoolExecutor(nshards) as pool:
+        return np.concatenate(list(pool.map(one, range(nshards))))
+
+
+def _patched(module, attrs, wrap):
+    """Replace ``module.<attr>`` by ``wrap(name, original)`` for each
+    (name, attr); returns the originals, for ``_restore``."""
+    saved = {}
+    for name, attr in attrs:
+        saved.setdefault(attr, getattr(module, attr))
+        setattr(module, attr, wrap(name, saved[attr]))
+    return saved
+
+
+def _restore(module, saved):
+    for attr, fn in saved.items():
+        setattr(module, attr, fn)
+
+
+def dist_counted(torch, keys, vals, nshards, chunks, **knobs):
+    """One counted distributed sort over ``LocalMesh(nshards)``: the
+    output, the launch counts, the launches of each site (chunk sorts,
+    exchange partitions, compaction; the wrappers only read the counters
+    around the calls) and the peak of allocated memory."""
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import COUNTS, reset_counts
+    sites = {name: dict.fromkeys(COUNTS, 0) for name, _ in DIST_SITES}
+
+    def wrap(name, fn):
+        def inner(*a, **k):
+            before = dict(COUNTS)
+            out = fn(*a, **k)
+            for key, v in COUNTS.items():
+                sites[name][key] += v - before[key]
+            return out
+        return inner
+
+    fn = D.make_distributed_sort(D.LocalMesh(nshards), num_chunks=chunks,
+                                 **knobs)
+    saved = _patched(D, DIST_SITES, wrap)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        out = fn(keys, vals) if vals is not None else fn(keys)
+        torch.cuda.synchronize()
+        counts = dict(COUNTS)
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        _restore(D, saved)
+    return out, counts, sites, peak
+
+
+def dist_check(torch, label, keys, vals, out, exhausted=False):
+    """The valid prefixes against ``torch.sort(stable=True)`` of the
+    ordered-bits carrier, the values a permutation that pairs each key;
+    an exhausted retry's clipped prefixes are only checked sorted and
+    paired."""
+    from repro_torch.core import bijection
+    from repro_torch.core.distributed import valid_concat
+    stats = out[-1]
+    got = valid_concat(out[0], stats.valid)
+    if exhausted:
+        s = bijection.sortable(bijection.to_ordered_bits(got))
+        need(bool((s[1:] >= s[:-1]).all()),
+             f"dist {label}: clipped output not sorted")
+    else:
+        ref_k, _ = reference_sort(torch, keys)
+        need(same_bits(torch, got, ref_k),
+             f"dist {label}: keys differ from torch.sort(stable=True)")
+        del ref_k
+    if vals is not None:
+        idx = valid_concat(out[1], stats.valid).to(torch.int64)
+        if not exhausted:
+            need(torch.equal(torch.sort(idx).values,
+                             torch.arange(keys.numel(), device=idx.device)),
+                 f"dist {label}: values are not a permutation")
+        # gathered through the carrier: CUDA has no uint32 gather
+        need(torch.equal(bijection.to_ordered_bits(keys)[idx],
+                         bijection.to_ordered_bits(got)),
+             f"dist {label}: keys[values] != keys")
+
+
+def dist_census(torch, label, keys, counts, sites, stats, nshards, chunks,
+                cfg=None):
+    """Per shard C·(1 + A) + 1 histograms, the chunk sorts' executed
+    passes + C·A + 1 fused passes (the passes recounted by sorting each
+    chunk again with ``return_stats``), at most C·classes local sorts;
+    each site's own share as well."""
+    from repro_torch.core import bijection, hybrid, model
+    from repro_torch.core.distributed import _UNSIGNED
+    P, C = nshards, chunks
+    A = int(stats.exchange_attempts[0])
+    n_local = keys.numel() // P
+    chunk = n_local // C
+    if chunk == 0:
+        need(A == 0 and counts["histogram"] == counts["fused_pass"] == 0,
+             f"dist {label}: degenerate census {counts}")
+        return dict(attempts=0, passes=0)
+    cfg = cfg or model.default_config(keys.element_size())
+    carrier = bijection.to_ordered_bits(keys)
+    passes = 0
+    for c in range(P * C):
+        part = carrier[c * chunk:(c + 1) * chunk].view(_UNSIGNED[
+            carrier.dtype])
+        passes += hybrid.hybrid_sort(part, cfg=cfg, return_stats=True,
+                                     narrow=False)[1].counting_passes
+    classes = len(hybrid.local_sort_classes(chunk, cfg))
+    want = {("chunk_sorts", "histogram"): P * C,
+            ("chunk_sorts", "fused_pass"): passes,
+            ("exchange", "histogram"): P * C * A,
+            ("exchange", "fused_pass"): P * C * A,
+            ("compaction", "histogram"): P,
+            ("compaction", "fused_pass"): P}
+    for (site, kernel), v in want.items():
+        need(sites[site][kernel] == v, f"dist {label}: {site} {kernel} "
+             f"launches {sites[site][kernel]} != {v}")
+    need(counts["histogram"] == P * (C * (1 + A) + 1) and
+         counts["fused_pass"] == passes + P * (C * A + 1) and
+         counts["local_sort"] <= P * C * classes,
+         f"dist {label}: census {counts} (A = {A}, passes {passes}, "
+         f"classes {classes})")
+    return dict(attempts=A, passes=passes, classes=classes)
+
+
+def link_bytes(P, C, A, n_local, kb, vb, oversample=64, refine=4,
+               slack=2.0):
+    """Bytes that would cross links between shards, by the reference's
+    ``link_bytes`` formula (``repro.core.distributed.ANALYSIS_CONTRACT``):
+    per attempt per chunk the keys, values and counts at capacity padding,
+    the splitter samples, the overflow flags; the (P - 1) / P share that
+    leaves a shard."""
+    import math
+    chunk = n_local // C
+    base = slack * chunk / P
+    cap = max(1, min(chunk, int(base + 4.0 * math.sqrt(max(base, 1.0)))))
+    samp = [C * max(1, min(-(-oversample * refine ** a // C), chunk))
+            for a in range(A)]
+    return int((P - 1) / P * (A * C * P * (cap * (kb + vb) + 4) +
+                              kb * P * sum(samp) + A * 2 * 4))
+
+
+def dist_case(torch, label, keys, vals, nshards, chunks, gate=None,
+              exhausted=False, **knobs):
+    """One counted run, checked for order, pairing, census, overflow and
+    attempts; returns its record (with the counts and sites).  With fewer
+    keys a shard than chunks nothing is exchanged: every output is the
+    sentinel (the carrier's -1) and no shard is valid."""
+    from repro_torch.core import bijection
+    out, counts, sites, peak = dist_counted(torch, keys, vals, nshards,
+                                            chunks, **knobs)
+    stats = out[-1]
+    if keys.numel() // nshards < chunks:
+        need(bool((bijection.to_ordered_bits(out[0]) == -1).all()) and
+             not stats.valid.any(), f"dist {label}: not an empty exchange")
+    else:
+        dist_check(torch, label, keys, vals, out, exhausted)
+    census = dist_census(torch, label, keys, counts, sites, stats, nshards,
+                         chunks)
+    valid = stats.valid.tolist()
+    over = bool(stats.overflow.any())
+    if exhausted:
+        need(over and census["attempts"] == knobs.get("max_attempts", 3) and
+             sum(valid) < keys.numel(),
+             f"dist {label}: expected an exhausted retry, got {stats}")
+    else:
+        need(not over, f"dist {label}: residual overflow")
+    if gate is not None:
+        need(max(valid) <= gate, f"dist {label}: a shard received "
+             f"{max(valid)} > {gate} keys (the ≤ 2x gate)")
+    res = {"phase": "dist", "case": label, "n": keys.numel(),
+           "dtype": str(keys.dtype).replace("torch.", ""),
+           "values": vals is not None, "shards": nshards, "chunks": chunks,
+           "knobs": knobs, "equal": True,
+           "exchange_attempts": census["attempts"], "overflow": over,
+           "valid": valid, "valid_max": max(valid), "gate": gate,
+           "peak_recv": stats.peak_recv.tolist(), "census": counts,
+           "sites": {k: {c: v[c] for c in ("histogram", "fused_pass")}
+                     for k, v in sites.items()},
+           "chunk_passes": census["passes"], "peak_mem_bytes": peak,
+           "link_bytes": link_bytes(
+               nshards, chunks, census["attempts"], keys.numel() // nshards,
+               keys.element_size(),
+               vals.element_size() if vals is not None else 0,
+               **{k: v for k, v in knobs.items()
+                  if k in ("oversample", "slack")}) if census["attempts"]
+           else 0}
+    emit(res)
+    return dict(res, launches=counts, site_counts=sites)
+
+
+def dist_stages(torch, keys, vals, nshards, chunks):
+    """One sort with each stage function wrapped in CUDA events (and the
+    mesh's all-to-all copies): milliseconds per stage, summed over its
+    calls, and the run's own events."""
+    from repro_torch.core import distributed as D
+    events = {}
+
+    def wrap(name, fn):
+        def inner(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            events.setdefault(name, []).append((start, end))
+            return out
+        return inner
+
+    mesh = D.LocalMesh(nshards)
+    mesh.all_to_all = wrap("all_to_all_copies", mesh.all_to_all)
+    fn = D.make_distributed_sort(mesh, num_chunks=chunks)
+    fn(keys, vals)                                   # warm-up
+    events.clear()
+    saved = _patched(D, DIST_STAGES, wrap)
+    try:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(keys, vals)
+        end.record()
+        end.synchronize()
+    finally:
+        _restore(D, saved)
+    stages = {name: sum(s.elapsed_time(e) for s, e in evs)
+              for name, evs in events.items()}
+    return dict(stages_ms=stages, run_ms=start.elapsed_time(end),
+                calls={name: len(evs) for name, evs in events.items()})
+
+
+def dist_partition_ids(torch, keys, vals, nshards):
+    """The ids of the first exchange partition (shard 0's first chunk,
+    ``nshards`` buckets) and of the first compaction (shard 0, 2 buckets)
+    of an uncounted run."""
+    from repro_torch.core import distributed as D
+    rec = {}
+    orig = D.counting_partition
+
+    def hook(ids, num_buckets, engine=None):
+        rec.setdefault(num_buckets, ids.clone())
+        return orig(ids, num_buckets, engine=engine)
+
+    D.counting_partition = hook
+    try:
+        D.make_distributed_sort(D.LocalMesh(nshards))(keys, vals)
+    finally:
+        D.counting_partition = orig
+    torch.cuda.synchronize()
+    return rec[nshards], rec[2]
+
+
+def dist_kernels(torch, keys, vals, nshards, reps):
+    """The fused pass of the 8-bucket exchange partition and of the
+    2-bucket compaction, on one shard's data at full size, against their
+    plain versions."""
+    from repro_torch.core import segmented
+    ex_ids, cp_ids = dist_partition_ids(torch, keys, vals, nshards)
+    res = {}
+    for label, ids, buckets in (("exchange", ex_ids, nshards),
+                                ("compaction", cp_ids, 2)):
+        rec = first_pass(torch, lambda: segmented.counting_partition(
+            ids, buckets))
+        res[label] = check_fused(torch, rec, ids.numel(),
+                                 f"dist_{label}_{buckets}", reps)
+        del rec
+        torch.cuda.empty_cache()
+    return res
+
+
+def dist_small_keys(np, kind, n):
+    """The smaller cases' keys, from seeds."""
+    rng = np.random.default_rng(2050)
+    if kind == "int16":
+        return rng.integers(-2**15, 2**15, n).astype(np.int16)
+    if kind == "int64":
+        return rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64,
+                            endpoint=True)
+    if kind == "float32":
+        x = rng.standard_normal(n).astype(np.float32)
+        pick = rng.integers(0, n, n // 64)
+        x[pick] = np.array([0.0, -0.0, np.inf, -np.inf],
+                           np.float32)[np.arange(pick.size) % 4]
+        nan = rng.integers(0, n, n // 256)
+        bits = x.view(np.uint32)
+        # NaNs of both signs with random payloads
+        bits[nan] = (np.uint32(0x7F800000) | rng.integers(
+            1, 1 << 23, nan.size, dtype=np.uint32) |
+            (rng.integers(0, 2, nan.size, dtype=np.uint32) << np.uint32(31)))
+        return x
+    if kind == "constant":
+        return np.full(n, 42, np.uint32)
+    # the reference's adversarial retry input (RETRY_BODY of
+    # tests/test_distributed_property.py) at n keys
+    base = rng.integers(0, 2**32 - 1, n, dtype=np.uint32, endpoint=True)
+    cl = (0x80000000 + rng.integers(0, 1 << 16, n, dtype=np.uint32))
+    return np.where(rng.random(n) < 0.95, cl, base).astype(np.uint32)
+
+
+#: the smaller cases: (label, keys, log2n below the main case, values,
+#: chunks, knobs); the retry input converges in more than one attempt at
+#: oversample 2 / slack 1.2 and exhausts 3 attempts at slack 0.5
+DIST_SMALL = (("int16_kv", "int16", 4, True, 2, {}),
+              ("float32_special_kv", "float32", 4, True, 1, {}),
+              ("int64_kv", "int64", 5, True, 1, {}),
+              ("constant_kv", "constant", 4, True, 4, {}),
+              ("retry_converges", "retry", 4, False, 1,
+               dict(oversample=2, slack=1.2)),
+              ("retry_exhausts", "retry", 4, False, 1,
+               dict(oversample=2, slack=0.5)))
+
+
+def dist_nccl(torch, np, n, reps, dev):
+    """A one-rank NCCL group (an in-process store, ``device_id`` the card):
+    the process-group mesh's result byte-equal to ``LocalMesh(1)``'s,
+    stats included, and both timed."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import (LocalMesh, ProcessGroupMesh,
+                                              make_distributed_sort)
+    from repro_torch.data import entropy_keys
+    keys = torch.from_numpy(entropy_keys(2060, n, 0)).to(dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = ProcessGroupMesh()
+        need(mesh.device == dev, f"NCCL mesh on {mesh.device}")
+        pg = make_distributed_sort(mesh)
+        local = make_distributed_sort(LocalMesh(1))
+        got, want = pg(keys, vals), local(keys, vals)
+        torch.cuda.synchronize()
+        need(same_bits(torch, got[0], want[0]) and
+             torch.equal(got[1], want[1]),
+             "NCCL world-1 mesh: output differs from LocalMesh(1)")
+        for f in got[2]._fields:
+            need(torch.equal(getattr(got[2], f), getattr(want[2], f)),
+                 f"NCCL world-1 mesh: stats.{f} differs from LocalMesh(1)")
+        dist_check(torch, "nccl_world1", keys, vals, got)
+        res = {"phase": "dist_nccl", "n": n, "backend": mesh.backend,
+               "world_size": mesh.size, "equal_to_local_mesh": True,
+               "valid": got[2].valid.tolist(),
+               "ms": cuda_ms(torch, lambda: pg(keys, vals), reps),
+               "local_mesh_ms": cuda_ms(torch, lambda: local(keys, vals),
+                                        reps)}
+    finally:
+        dist.destroy_process_group()
+    emit(res)
+    return res
+
+
+def bucketing_routes(torch, np, m, ooc_chunk):
+    """``length_bucketed_batches`` on m document lengths below 2^16 by
+    its three routes (host LSD, ``ooc``, ``dist`` over ``LocalMesh(8)``),
+    each timed on the host clock, checked as a valid packing and against
+    the host route's lengths and bounds."""
+    from repro_torch.core.distributed import LocalMesh
+    from repro_torch.data import length_bucketed_batches
+    from repro_torch.kernels import COUNTS, reset_counts
+    lengths = np.random.default_rng(2070).integers(
+        1, 1 << 16, m).astype(np.uint32)
+    batch = 1 << 20
+    routes = (("host", {}), ("ooc", dict(ooc_chunk_elems=ooc_chunk)),
+              ("dist", dict(dist_mesh=LocalMesh(DIST_SHARDS))))
+    res, first = {}, None
+    for name, kw in routes:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        order, bounds = length_bucketed_batches(lengths, batch, **kw)
+        seconds = time.perf_counter() - t0
+        counts = dict(COUNTS)
+        sl = lengths[order].astype(np.int64)
+        b = np.asarray(bounds, np.int64)
+        need(np.array_equal(np.sort(order), np.arange(m)) and
+             bool((np.diff(sl) >= 0).all()) and
+             bool((sl[b[1:] - 1] * np.diff(b) <= batch).all()),
+             f"bucketing {name}: not a valid packing")
+        if first is None:
+            first = (sl, bounds)
+        need(np.array_equal(sl, first[0]) and bounds == first[1],
+             f"bucketing {name}: lengths or bounds differ from the host "
+             f"route's")
+        res[name] = dict(seconds=seconds, batches=len(bounds) - 1,
+                         launches={k: counts[k] for k in (
+                             "histogram", "fused_pass", "local_sort",
+                             "merge") if counts[k]})
+    emit({"phase": "bucketing", "docs": m, "batch_tokens": batch,
+          "ooc_chunk_elems": ooc_chunk, "equal": True, "routes": res})
+    return res
+
+
+def dist_phase(torch, np, log2n, reps, dev):
+    """Slice S4 on the card, each case its own counted run: the main case
+    (uniform, clustered, Zipf keys with values at 1 and 4 chunks), its
+    kernels against their plain versions, its times; the smaller cases;
+    the NCCL world-1 mesh; length bucketing's three routes."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch import hybrid_sort
+    from repro_torch.core import distributed as D
+    n = 1 << log2n
+    P = DIST_SHARDS
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    main, times, kernels = {}, {}, None
+    with ThreadPoolExecutor(2) as pool:
+        later = {kind: pool.submit(dist_keys, np, kind, n, P)
+                 for kind in ("clustered", "zipf")}
+        for kind in ("uniform", "clustered", "zipf"):
+            x = (dist_keys(np, kind, n, P) if kind == "uniform"
+                 else later[kind].result())
+            keys = torch.from_numpy(x).to(dev)
+            del x
+            gate = 2 * n // P if kind != "zipf" else None
+            for chunks in (1, 4):
+                label = f"{kind}_kv_c{chunks}"
+                main[label] = dist_case(torch, label, keys, vals, P, chunks,
+                                        gate=gate)
+                torch.cuda.empty_cache()
+            if kind == "uniform":
+                kernels = dist_kernels(torch, keys, vals, P, reps)
+                for chunks in (1, 4):
+                    fn = D.make_distributed_sort(D.LocalMesh(P),
+                                                 num_chunks=chunks)
+                    times[chunks] = dict(
+                        ms=cuda_ms(torch, lambda: fn(keys, vals), reps),
+                        **dist_stages(torch, keys, vals, P, chunks))
+                    torch.cuda.empty_cache()
+                lib_keys = keys.view(torch.int32)
+                times["hybrid_sort_same_records_ms"] = cuda_ms(
+                    torch, lambda: hybrid_sort(keys, vals), reps)
+                times["torch_sort_same_records_ms"] = cuda_ms(
+                    torch, lambda: torch.sort(lib_keys, stable=True), reps)
+                emit({"phase": "dist_times", "n": n, "shards": P,
+                      **{f"chunks_{c}": times[c] for c in (1, 4)},
+                      "hybrid_sort_same_records_ms":
+                      times["hybrid_sort_same_records_ms"],
+                      "torch_sort_same_records_ms":
+                      times["torch_sort_same_records_ms"]})
+            del keys
+            torch.cuda.empty_cache()
+    del vals
+    small = {}
+    for label, kind, below, with_values, chunks, knobs in DIST_SMALL:
+        m = 1 << (log2n - below)
+        keys = torch.from_numpy(dist_small_keys(np, kind, m)).to(dev)
+        v = (torch.arange(m, dtype=torch.int32, device=dev) if with_values
+             else None)
+        small[label] = dist_case(torch, label, keys, v, P, chunks,
+                                 exhausted=label == "retry_exhausts",
+                                 **knobs)
+        del keys, v
+    need(small["retry_converges"]["exchange_attempts"] > 1,
+         "dist retry_converges: converged in one attempt")
+    tiny = torch.from_numpy(dist_small_keys(np, "retry", P)).to(dev)
+    small["degenerate"] = dist_case(
+        torch, "degenerate_chunks_gt_n_local", tiny,
+        torch.arange(P, dtype=torch.int32, device=dev), P, 2)
+    need(small["degenerate"]["valid_max"] == 0,
+         "dist degenerate: a shard reports valid keys")
+    torch.cuda.empty_cache()
+    nccl = dist_nccl(torch, np, 1 << (log2n - 2), reps, dev)
+    torch.cuda.empty_cache()
+    bucketing = bucketing_routes(torch, np, 1 << (log2n - 8),
+                                 1 << (log2n - 10))
+    launches = main["uniform_kv_c1"]["launches"]
+    sites = main["uniform_kv_c1"]["site_counts"]
+    emit({"phase": "dist_summary", "main_path": "uniform_kv_c1",
+          "launches": {k: launches[k] for k in (
+              "histogram", "fused_pass", "local_sort", "merge_rows",
+              "host_reads")},
+          "sort_ms": {c: times[c]["ms"] for c in (1, 4)},
+          "stages_ms": {c: times[c]["stages_ms"] for c in (1, 4)},
+          "hybrid_sort_same_records_ms":
+          times["hybrid_sort_same_records_ms"],
+          "torch_sort_same_records_ms": times["torch_sort_same_records_ms"],
+          "nccl_world1_ms": nccl["ms"],
+          "bucketing_s": {k: v["seconds"] for k, v in bucketing.items()}})
+    return dict(main=main, small=small, kernels=kernels, times=times,
+                launches=launches, sites=sites)
+
+
+# --------------------------------------------------------------------------
 # phase 5: the out-of-core sort (paper §5) and its merge kernel
 # --------------------------------------------------------------------------
 
@@ -1988,6 +2523,14 @@ def run(args) -> int:
          f"a kernel of the S2 path was not launched: {s2['launches']}")
     torch.cuda.empty_cache()
 
+    # slice S4: the distributed sort over 8 shards on the card, length
+    # bucketing's three routes (their own counted runs)
+    dres = dist_phase(torch, np, args.log2n, args.reps, dev)
+    need(all(dres["launches"][k] > 0 for k in (
+        "histogram", "fused_pass", "local_sort", "merge_rows")),
+         f"a kernel of the dist path was not launched: {dres['launches']}")
+    torch.cuda.empty_cache()
+
     # phase 5: the out-of-core path (its own counted runs)
     kmerge_res, ooc_launches = ooc_phases(torch, np, args.log2n, args.reps)
     need(all(ooc_launches[k] > 0 for k in ("histogram", "fused_pass",
@@ -2066,6 +2609,13 @@ def run(args) -> int:
              launches=s2["launches"]["partition_wide"]["fused_pass"],
              **_k(part_wide),
              bound_by="bytes", library_ms=None)]
+    kernels += [
+        dict(name=f"fused_pass_dist_{site}", route="cuda",
+             source=src + "fused_pass.cu",
+             replaces="src/repro/kernels/fused.py:129",
+             launches=dres["sites"][site]["fused_pass"],
+             **_k(dres["kernels"][site]), bound_by="bytes", library_ms=None)
+        for site in ("exchange", "compaction")]
     lib_src = {"bitonic_rows": ("bitonic_rows.cu", "bitonic.py:90"),
                "bitonic_rows_kv": ("bitonic_rows.cu", "bitonic.py:100"),
                "multisplit": ("multisplit.cu", "multisplit.py:87"),
@@ -2084,7 +2634,8 @@ def run(args) -> int:
           "d12_kv_sort_ms": wide[12]["sort"]["ms"],
           "d16_sort_ms": wide[16]["sort"]["ms"],
           "lsd_kv_d8_ms": s2["lsd"]["uint32_kv_d8"]["by_kpb"],
-          "lsd_d5_ms": s2["lsd"]["uint32_d5"]["by_kpb"]})
+          "lsd_d5_ms": s2["lsd"]["uint32_d5"]["by_kpb"],
+          "dist_kv_ms": {c: dres["times"][c]["ms"] for c in (1, 4)}})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,11 +9,20 @@ merges stay in ``core.segmented``, where the reference keeps them):
   oocsort      — §5: the out-of-core pipelined sort (chunk sorts + k-way
                  merge rounds, host spill, faults, checkpoints, resume)
   OocStats     — its transfer / round / fault accounting
+  make_distributed_sort — §5: the sample sort across shards (local chunk
+                 sorts, splitter exchange, one merge) over a mesh:
+  LocalMesh    — all shards in one process on one device
+  ProcessGroupMesh — one shard per torch.distributed rank (NCCL / gloo)
+  DistStats, valid_concat — its exchange ledger; the valid prefixes joined
   ENGINES, resolve_engine — "argsort" / "scan" / "kernel" and "auto"
 """
 from repro_torch.core.bijection import (from_ordered_bits,
                                         from_ordered_bits_np, key_bits,
                                         to_ordered_bits, to_ordered_bits_np)
+from repro_torch.core.distributed import (DistStats, LocalMesh,
+                                          ProcessGroupMesh,
+                                          make_distributed_sort,
+                                          valid_concat)
 from repro_torch.core.hybrid import SortStats, hybrid_sort
 from repro_torch.core.lsd import lsd_sort
 from repro_torch.core.model import (SortConfig, default_config,
@@ -24,6 +33,8 @@ from repro_torch.core.ranks import ENGINES, resolve_engine
 
 __all__ = [
     "hybrid_sort", "SortStats", "lsd_sort", "oocsort", "OocStats",
+    "make_distributed_sort", "DistStats", "LocalMesh", "ProcessGroupMesh",
+    "valid_concat",
     "SortConfig", "default_config",
     "memory_budget", "pass_counts", "expected_speedup",
     "to_ordered_bits", "from_ordered_bits", "to_ordered_bits_np",

@@ -1300,3 +1300,114 @@ def test_capacity_dispatch_on_card_equals_cpu(dev):
     want = segmented.capacity_dispatch(torch.from_numpy(ids), 384, 200,
                                        engine="argsort")
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+# ---- slice S4: the distributed sort; length bucketing ----
+
+def _dist_keys(rng, dtype, n):
+    dtype = np.dtype(dtype)
+    if dtype.kind == "f":
+        x = rng.standard_normal(n).astype(dtype)
+        x[:8] = [np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, -1.5]
+        return x
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+
+
+def _dist_equal(got, want):
+    """Keys, values and stats of two distributed sorts, byte for byte."""
+    for a, b in zip(got[:-1], want[:-1]):
+        assert _bits_equal(a.cpu(), b.cpu())
+    for f in got[-1]._fields:
+        assert torch.equal(getattr(got[-1], f).cpu(),
+                           getattr(want[-1], f).cpu())
+
+
+@pytest.mark.parametrize("values", [False, True])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.uint32,
+                                   np.float32, np.int64, np.float64])
+@pytest.mark.parametrize("nshards", [1, 2, 8])
+def test_distributed_sort_on_card_equals_cpu(dev, nshards, dtype, values):
+    """``LocalMesh(P)`` on the card against ``LocalMesh(P, "cpu")``: the
+    padded keys, the values and every stats field; the census is C·(1 + A)
+    + 1 histograms a shard."""
+    from repro_torch.core.distributed import LocalMesh, make_distributed_sort
+    from repro_torch.kernels import COUNTS, reset_counts
+    rng = np.random.default_rng(nshards)
+    n = nshards * 40000
+    x = _dist_keys(rng, dtype, n)
+    args = (x, np.arange(n, dtype=np.int32)) if values else (x,)
+    for chunks in (1, 2):
+        reset_counts()
+        got = make_distributed_sort(LocalMesh(nshards),
+                                    num_chunks=chunks)(*args)
+        torch.cuda.synchronize()
+        attempts = int(got[-1].exchange_attempts[0])
+        assert COUNTS["histogram"] == nshards * (chunks * (1 + attempts) + 1)
+        assert COUNTS["fused_pass"] >= nshards * (chunks * attempts + 1)
+        assert got[0].device.type == "cuda"
+        want = make_distributed_sort(LocalMesh(nshards, "cpu"),
+                                     num_chunks=chunks,
+                                     engine="argsort")(*args)
+        _dist_equal(got, want)
+
+
+def test_distributed_sort_on_card_retry_and_edges(dev):
+    """The adversarial retry input (converges at slack 1.2, exhausts at
+    0.5), the constant key and num_chunks > n_local, at P = 8."""
+    from repro_torch.core.distributed import LocalMesh, make_distributed_sort
+    rng = np.random.default_rng(7)
+    n = 8 * (1 << 12)
+    base = rng.integers(0, 2**32 - 1, n, dtype=np.uint32, endpoint=True)
+    cl = (0x80000000 + rng.integers(0, 1 << 16, n, dtype=np.uint32))
+    x = np.where(rng.random(n) < 0.95, cl, base).astype(np.uint32)
+    cases = [(x, dict(oversample=2, slack=1.2)),
+             (x, dict(oversample=2, slack=0.5)),
+             (np.full(n, 42, np.uint32), {}),
+             (x[:8], dict(num_chunks=4))]
+    for keys, knobs in cases:
+        got = make_distributed_sort(LocalMesh(8), **knobs)(keys)
+        want = make_distributed_sort(LocalMesh(8, "cpu"), engine="argsort",
+                                     **knobs)(keys)
+        _dist_equal(got, want)
+    st = make_distributed_sort(LocalMesh(8), oversample=2, slack=1.2)(x)[1]
+    assert int(st.exchange_attempts[0]) > 1 and not st.overflow.any()
+
+
+def test_nccl_world_one_mesh_equals_local_mesh(dev, tmp_path):
+    """A one-rank NCCL group: the process-group mesh's bytes and stats
+    equal ``LocalMesh(1)``'s."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import (LocalMesh, ProcessGroupMesh,
+                                              make_distributed_sort)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = ProcessGroupMesh()
+        assert mesh.device == dev and mesh.shards == (0,)
+        rng = np.random.default_rng(11)
+        x = rng.integers(0, 2**32, 1 << 20, dtype=np.uint32)
+        v = np.arange(x.size, dtype=np.int32)
+        for chunks in (1, 4):
+            got = make_distributed_sort(mesh, num_chunks=chunks)(x, v)
+            want = make_distributed_sort(LocalMesh(1),
+                                         num_chunks=chunks)(x, v)
+            _dist_equal(got, want)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_length_bucketing_on_card_equals_cpu(dev):
+    from repro_torch.core.distributed import LocalMesh
+    from repro_torch.data import length_bucketed_batches
+    rng = np.random.default_rng(13)
+    x = rng.integers(0, 1 << 16, 100003).astype(np.uint32)
+    want = length_bucketed_batches(x, 1 << 16, device="cpu")
+    routes = [dict(), dict(ooc_chunk_elems=1 << 14),
+              dict(dist_mesh=LocalMesh(4)), dict(dist_mesh=LocalMesh(1))]
+    for kw in routes:
+        order, bounds = length_bucketed_batches(x, 1 << 16, **kw)
+        assert np.array_equal(x[order], x[want[0]]) and bounds == want[1]
+        assert np.array_equal(np.sort(order), np.arange(x.size))
+    order, _ = length_bucketed_batches(x, 1 << 16)
+    assert np.array_equal(order, want[0])           # the host route: stable

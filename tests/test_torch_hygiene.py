@@ -54,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core.hybrid, "
             "repro_torch.kernels.fused, repro_torch.kernels.bitonic, "
             "repro_torch.kernels.multisplit, repro_torch.kernels.assigned, "
-            "repro_torch.kernels.ops, repro_torch.core.interop\n"
+            "repro_torch.kernels.ops, repro_torch.core.interop, "
+            "repro_torch.data\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}]\n"
             "assert not bad, bad\n")
@@ -78,6 +79,34 @@ def test_numpy_input_goes_to_the_gpu_or_raises():
     out = hybrid_sort(x, device="cpu")
     assert out.device.type == "cpu"
     assert np.array_equal(out.numpy(), np.sort(x))
+
+
+def test_distributed_and_bucketing_go_to_the_gpu_or_raise():
+    """``LocalMesh`` built with no device is the GPU (it raises without
+    one), and ``length_bucketed_batches`` sends numpy lengths to the GPU
+    unless the caller asks for the CPU."""
+    from repro_torch.core import LocalMesh, make_distributed_sort
+    from repro_torch.data import length_bucketed_batches
+    x = np.arange(256, dtype=np.uint32)[::-1].copy()
+    if torch.cuda.is_available():
+        out, stats = make_distributed_sort(LocalMesh(2))(x)
+        assert out.device.type == "cuda" and stats.valid.device.type == "cuda"
+        order, _ = length_bucketed_batches(x, 1024)
+        assert np.array_equal(order, np.arange(256)[::-1])
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LocalMesh(2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            length_bucketed_batches(x, 1024)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            length_bucketed_batches(x, 1024, ooc_chunk_elems=64)
+    out, _ = make_distributed_sort(LocalMesh(2, "cpu"))(x)
+    assert out.device.type == "cpu"
+    with pytest.raises(ValueError, match="mesh runs on"):
+        make_distributed_sort(LocalMesh(2, "cpu"))(torch.from_numpy(x).to(
+            "meta"))
+    order, bounds = length_bucketed_batches(x, 1024, device="cpu")
+    assert np.array_equal(order, np.arange(256)[::-1]) and bounds[-1] == 256
 
 
 def test_work_follows_the_tensor_device():
