@@ -6,9 +6,27 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together) and drives five paths of
+(one ``nvcc`` per source, all started together) and drives six paths of
 the port, each with the launch counters set to 0 just before it and read
 just after:
+
+* the serving path (its ``serve`` phase, first, on an empty card):
+  ``repro_torch.serve.ServeEngine`` serving Qwen3-30B-A3B at its full
+  published config (48 layers, bf16, 61 GB of random weights from a seed)
+  a queue of 16 requests (prompts of 16–48 tokens, 16 / 80 / 144 / 208 new
+  tokens each four times) at batch 8 with a 320-row cache: the admission
+  order against a stable sort of the length classes, the census (one
+  histogram and one fused pass per ``schedule``, 48 + 48 per decode step,
+  no host read in a step), every token in range; batch 0 again with the
+  MoE dispatch on ``engine="argsort"``, every captured dispatch table and
+  every token equal; the histogram and the fused pass held to their plain
+  versions at the admission's (16 ids into 256 buckets) and the
+  dispatch's (64 ids into 128 experts) shapes, beside ``torch.bincount``
+  and ``torch.sort(stable=True)`` + ``torch.bincount``; each prefill and a
+  decode step timed (CUDA events), decode tokens/s, the 48 dispatches of a
+  step timed alone, one step's host spans and profiled device time, peak
+  memory and the step's byte bound (the parameters one step reads at
+  3.35 TB/s); the parameters freed before the next phase;
 
 * the main path, ``repro_torch.hybrid_sort`` at its default engine (which
   must resolve to the kernels), on 2^28 uint32 keys alone and with values,
@@ -106,8 +124,9 @@ no result.
 ``--log2n`` shrinks the main sizes (the ooc input is 2^(log2n + 2) keys in
 chunks of 2^log2n, the spill budget 2^(log2n + 6) bytes, the library
 inputs 2^log2n keys): a quick check;
-``--reps`` sets the timed repetitions.  Neither is needed for the full run,
-which runs every phase at full size.
+``--reps`` sets the timed repetitions; ``--only serve`` runs the serve
+phase alone.  None is needed for the full run, which runs every phase at
+full size.
 """
 from __future__ import annotations
 
@@ -1427,17 +1446,18 @@ def partition_case(torch, np, label, buckets, kind, check_pass, m, reps,
     return dict(res, launches=counts, fused=fres, ids=ids)
 
 
-def check_histogram_s2(torch, ids, width, reps):
-    """The prologue histogram at the partition's shape (the ids padded as
-    the single pass pads them), against its plain version, timed beside
-    ``torch.bincount``."""
+def check_histogram_s2(torch, ids, width, reps, kpb=1024,
+                       label="partition_ids"):
+    """The prologue histogram at a partition's shape (the ids padded as
+    the single pass pads them at ``kpb``), against its plain version,
+    timed beside ``torch.bincount``."""
     from repro_torch.kernels import fused, histogram, ref
     m = ids.numel()
-    (ck, _), _ = fused.make_ping_pong(ids, (), 1024)
+    (ck, _), _ = fused.make_ping_pong(ids, (), kpb)
     err = max_abs_err(torch, [(histogram.digit_total(ck, m, 0, width),
                                ref.radix_histogram_ref(
                                    ck[:m].reshape(1, -1), 0, width)[0])])
-    need(err == 0, "histogram (partition) != plain")
+    need(err == 0, f"histogram ({label}) != plain")
     res = dict(ms=cuda_ms(torch, lambda: histogram.digit_total(
         ck, m, 0, width), reps),
         plain_ms=cuda_ms(torch, lambda: ref.radix_histogram_ref(
@@ -1445,8 +1465,8 @@ def check_histogram_s2(torch, ids, width, reps):
         library_ms=cuda_ms(torch, lambda: torch.bincount(
             ids, minlength=1 << width), reps),
         bound_ms=bound_ms(m * 4 + (1 << width) * 4), max_abs_err=err)
-    emit({"phase": "kernel_check", "kernel": "histogram", "keys":
-          "partition_ids", "n": m, "width": width, "equal": True, **res})
+    emit({"phase": "kernel_check", "kernel": "histogram", "keys": label,
+          "n": m, "width": width, "equal": True, **res})
     return res
 
 
@@ -2060,6 +2080,407 @@ def dist_phase(torch, np, log2n, reps, dev):
 
 
 # --------------------------------------------------------------------------
+# serve phase: ServeEngine serving Qwen3-30B-A3B at full width
+# --------------------------------------------------------------------------
+
+#: the served model (``configs/qwen3_moe_30b_a3b.py`` unchanged: 48 layers,
+#: d_model 2048, 32/4 heads of 128, 128 experts top-8 of width 768, vocab
+#: 151 936, bfloat16) and its queue: 16 requests with prompts of 16–48
+#: tokens, each new-token budget four times (admission classes 0–3), batch
+#: 8, a cache of 320 rows, one dispatch group
+SERVE_ARCH = "qwen3_moe_30b_a3b"
+SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_LEN = 16, 8, 320
+SERVE_NEW_TOKENS = (16, 80, 144, 208)
+#: the spans of a decode step the profile names: (label, module, function)
+SERVE_SPANS = (("serve.attention", "layers", "attention"),
+               ("serve.route", "moe", "_route"),
+               ("serve.dispatch", "moe", "_dispatch_tables"),
+               ("serve.experts", "moe", "_expert_ffn"))
+
+
+def serve_queue(np, vocab):
+    """The queue from a seed: prompts of 16–48 tokens, budgets permuted."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(2021)
+    budgets = rng.permutation(np.repeat(
+        SERVE_NEW_TOKENS, SERVE_REQUESTS // len(SERVE_NEW_TOKENS)))
+    return [Request(i, rng.integers(0, vocab, int(rng.integers(16, 49)))
+                    .astype(np.int32), int(budgets[i]))
+            for i in range(SERVE_REQUESTS)]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _partition_kpb(m):
+    """The block size ``plan.single_pass_partition`` takes for m ids."""
+    return max(8, min(1024, 1 << (m - 1).bit_length()))
+
+
+def serve_kernels(torch, rec, ids, buckets, reps, label):
+    """The fused pass of one partition (captured) and the prologue
+    histogram against their plain versions at the path's shape; the fused
+    row's library time is ``torch.sort(stable=True)`` + ``torch.bincount``
+    of the same ids."""
+    width = max(1, (buckets - 1).bit_length())
+    fres = check_fused(torch, rec, ids.numel(), label, reps)
+    fres["library_ms"] = cuda_ms(torch, lambda: (
+        torch.sort(ids, stable=True), torch.bincount(ids, minlength=buckets)),
+        reps)
+    return check_histogram_s2(torch, ids, width, reps,
+                              _partition_kpb(ids.numel()), label), fres
+
+
+def _counted_steps(torch, module, steps):
+    """Wrap ``module.decode_step``: per call, the launches and counted host
+    reads it made, and the synchronizing calls torch reported in it."""
+    import warnings
+    from repro_torch.kernels import COUNTS
+
+    def wrap(_, fn):
+        def step(*a, **kw):
+            before = dict(COUNTS)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = [str(w.message) for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            steps.append(dict(
+                {k: COUNTS[k] - before[k] for k in ("histogram",
+                                                    "fused_pass",
+                                                    "host_reads")},
+                syncs=len(syncs), sync_message=syncs[0][:300] if syncs
+                else None))
+            return out
+        return step
+    return _patched(module, [("step", "decode_step")], wrap)
+
+
+def _captured_dispatch(moe, store):
+    """Wrap ``moe.capacity_dispatch``: keep clones of its ids and tables."""
+    def wrap(_, fn):
+        def dispatch(ids, e, capacity, engine=None):
+            out = fn(ids, e, capacity, engine=engine)
+            store.append(dict(ids=ids.clone(), e=e, capacity=capacity,
+                              tables=tuple(t.clone() for t in out)))
+            return out
+        return dispatch
+    return _patched(moe, [("dispatch", "capacity_dispatch")], wrap)
+
+
+def _span_wrappers(torch, make):
+    """Wrap each function of ``SERVE_SPANS`` with ``make(label, fn)``;
+    returns what ``_restore`` needs."""
+    from repro_torch.models import layers, moe
+    mods = {"layers": layers, "moe": moe}
+    return [(mods[m], _patched(mods[m], [(label, attr)], make))
+            for label, m, attr in SERVE_SPANS]
+
+
+def serve_profile(torch, eng, tok, cache):
+    """Where a decode step's time goes (after a warm-up): one step with a
+    host clock around each span of ``SERVE_SPANS`` (no synchronize inside:
+    the host's issue time), then one step under ``torch.profiler`` with the
+    spans as ``record_function`` ranges: wall, device busy and idle share
+    (kernels, copies and fills; the spans' own device ranges left out),
+    each span's kernel time, the dispatch's own kernels, the top kernels,
+    and any device-to-host copy."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    labels = [s[0] for s in SERVE_SPANS]
+    host = dict.fromkeys(labels, 0.0)
+
+    def timed(label, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[label] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    def spanned(label, fn):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    eng._decode(tok, cache)
+    torch.cuda.synchronize()
+    saved = _span_wrappers(torch, timed)
+    try:
+        t0 = time.perf_counter()
+        eng._decode(tok, cache)
+        host_issue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        host_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, sv in saved:
+            _restore(mod, sv)
+    saved = _span_wrappers(torch, spanned)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng._decode(tok, cache)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, sv in saved:
+            _restore(mod, sv)
+    events = _device_intervals(prof)
+    ranges = {lb: [(a, b) for n, a, b in events if n == lb] for lb in labels}
+    work = [(n, a, b) for n, a, b in events if n not in ranges]
+    busy = _measure(_union([(a, b) for _, a, b in work])) / 1e3
+    spans = {}
+    for lb in labels:
+        inside = [(n, a, b) for n, a, b in work
+                  if any(lo <= a < hi for lo, hi in ranges[lb])]
+        spans[lb] = {"calls": len(ranges[lb]), "host_ms": host[lb],
+                     "device_ms": sum(b - a for _, a, b in inside) / 1e3,
+                     "launches": len(inside)}
+    by_name = {}
+    for name, a, b in work:
+        by_name.setdefault(name, [0.0, 0])
+        by_name[name][0] += (b - a) / 1e3
+        by_name[name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    disp = sum(v[0] for k, v in by_name.items()
+               if "fused_pass_kernel" in k or "hist_kernel" in k
+               or "split_total_kernel" in k)
+    return {"host_wall_ms": host_wall, "host_issue_ms": host_issue,
+            "profiled_wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / host_wall,
+            "device_launches": len(work), "spans": spans,
+            "dispatch_kernels_device_ms": disp,
+            "dtoh_copies": [n for n, _, _ in work
+                            if n.startswith("Memcpy DtoH")],
+            "top": [{"name": k[:80], "calls": v[1], "device_ms": v[0]}
+                    for k, v in top[:12]]}
+
+
+def serve_phase(torch, np, reps, dev):
+    """``ServeEngine`` serving Qwen3-30B-A3B at its full published config on
+    the card, weights from a seeded generator: (a) the admission pass's and
+    the MoE dispatch's histogram and fused pass held to their plain
+    versions at the path's shapes; (b) the census: 2 launches per
+    ``schedule``, 96 per decode step and no host read in a step; (c) the
+    queue served with the kernel engine, then batch 0 again with the MoE
+    dispatch on ``engine="argsort"``: every captured dispatch table and
+    every token equal; (d) prefill and decode-step times (CUDA events),
+    decode tokens/s, the dispatch's share of a step, a profiled step, peak
+    memory and the step's byte bound.  Frees the parameters at the end."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import segmented
+    from repro_torch.core.ranks import resolve_engine
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import init_cache, init_params, moe
+    from repro_torch.serve import LENGTH_CLASS, Request, ServeEngine
+    from repro_torch.serve import engine as serve_engine
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(2021),
+                         device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    emb = params["embed"]
+    # one step reads every parameter but the embedding, of which one row a
+    # token; every expert's weights, since all 128 capacity buffers run
+    step_bytes = (param_bytes - emb.numel() * emb.element_size()
+                  + SERVE_BATCH * cfg.d_model * emb.element_size())
+    need(abs(n_params / cfg.param_count() - 1) < 0.01,
+         f"serve: {n_params} parameters against the config's "
+         f"{cfg.param_count()}")
+    queue = serve_queue(np, cfg.vocab)
+    classes = [min(r.max_new_tokens // LENGTH_CLASS, 255) for r in queue]
+    need(sorted(set(classes)) == [0, 1, 2, 3], f"serve classes {classes}")
+    eng = ServeEngine(cfg, params, SERVE_BATCH, SERVE_MAX_LEN, device=dev)
+    need(resolve_engine(eng.dispatch_engine, eng.device) == "kernel",
+         "serve: the default dispatch engine is not the kernels")
+
+    # one untimed, uncounted decode step: library handles and first-launch
+    # costs stay out of the counted run's prefill times
+    with torch.inference_mode():
+        eng._decode(torch.zeros((SERVE_BATCH, 1), dtype=torch.int32,
+                                device=dev),
+                    init_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN, device=dev))
+
+    # (b) the counted run: schedule, then every batch; batch 0's dispatch
+    # tables captured, each batch's prefill timed (CUDA events) and batch
+    # 0's kept for the decode-step timing
+    steps, cap_k, cap_a, prefills = [], [], [], []
+    plain_prefill = eng._prefill
+
+    def timed_prefill(reqs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = plain_prefill(reqs)
+        ev[1].record()
+        prefills.append((ev, max(len(r.prompt) for r in reqs),
+                         None if prefills else out))
+        return out
+
+    eng._prefill = timed_prefill
+    torch.cuda.synchronize()
+    reset_counts()
+    batches = eng.schedule(queue)
+    sched = dict(COUNTS)
+    need(sched["histogram"] == 1 and sched["fused_pass"] == 1
+         and sched["host_reads"] == 0,
+         f"serve: schedule census {sched}, expected 1 + 1, no read")
+    want = np.argsort(np.asarray(classes), kind="stable")
+    got = [r.rid for b in batches for r in b]
+    need(got == want.tolist(), f"serve: admission order {got} != {want}")
+    saved = _counted_steps(torch, serve_engine, steps)
+    try:
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            dsaved = _captured_dispatch(moe, cap_k) if i == 0 else None
+            try:
+                eng.generate(b)
+            finally:
+                if dsaved:
+                    _restore(moe, dsaved)
+            if i == 0:
+                steps0 = len(steps)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        _restore(serve_engine, saved)
+        del eng._prefill
+    counts = dict(COUNTS)
+    prefill = [dict(tokens=n, ms=ev[0].elapsed_time(ev[1]))
+               for ev, n, _ in prefills]
+    logits, cache = prefills[0][2]
+    del prefills
+    n_steps = sum(max(len(r.prompt) for r in b)
+                  + max(r.max_new_tokens for r in b) for b in batches)
+    per_step = cfg.n_layers * cfg.dispatch_groups
+    need(len(steps) == n_steps, f"serve: {len(steps)} decode steps, "
+         f"expected {n_steps}")
+    bad = [s for s in steps if (s["histogram"], s["fused_pass"],
+                                s["host_reads"]) != (per_step, per_step, 0)]
+    need(not bad, f"serve: decode-step census {bad[:3]}, expected "
+         f"{per_step} + {per_step} launches and no host read")
+    need(counts["histogram"] == 1 + per_step * n_steps
+         and counts["fused_pass"] == 1 + per_step * n_steps,
+         f"serve: run census {counts}")
+    for b in batches:
+        for r in b:
+            need(r.generated.shape == (r.max_new_tokens,)
+                 and int(r.generated.min()) >= 0
+                 and int(r.generated.max()) < cfg.vocab,
+                 f"serve: request {r.rid} generated {r.generated.shape}")
+    new_tokens = sum(r.max_new_tokens for r in queue)
+
+    # (c) batch 0 again, the MoE dispatch on the argsort engine
+    again = [Request(r.rid, r.prompt, r.max_new_tokens) for r in batches[0]]
+    eng_a = ServeEngine(cfg, params, SERVE_BATCH, SERVE_MAX_LEN, device=dev,
+                        dispatch_engine="argsort")
+    dsaved = _captured_dispatch(moe, cap_a)
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        eng_a.generate(again)
+    finally:
+        _restore(moe, dsaved)
+    arg_counts = dict(COUNTS)
+    need(arg_counts["histogram"] == 0 and arg_counts["fused_pass"] == 0,
+         f"serve: the argsort engine launched kernels {arg_counts}")
+    need(len(cap_k) == len(cap_a) == steps0 * per_step,
+         f"serve: {len(cap_k)} / {len(cap_a)} dispatches captured, "
+         f"expected {steps0 * per_step}")
+    for i, (k, a) in enumerate(zip(cap_k, cap_a)):
+        need(torch.equal(k["ids"], a["ids"]) and all(
+            x.dtype == y.dtype and torch.equal(x, y)
+            for x, y in zip(k["tables"], a["tables"])),
+            f"serve: dispatch {i} differs between the engines")
+    for r, s in zip(batches[0], again):
+        need(np.array_equal(r.generated, s.generated),
+             f"serve: request {r.rid}'s tokens differ between the engines")
+
+    # (a) the kernels against their plain versions at the path's shapes
+    ids_adm = torch.tensor(classes, dtype=torch.int32, device=dev)
+    rec = first_pass(torch, lambda: segmented.counting_partition(ids_adm,
+                                                                  256))
+    adm_hist, adm_fused = serve_kernels(torch, rec, ids_adm, 256, reps,
+                                        "serve_admission")
+    ids_moe, e, cap = (cap_k[0][k] for k in ("ids", "e", "capacity"))
+    rec = first_pass(torch, lambda: segmented.capacity_dispatch(ids_moe, e,
+                                                                 cap))
+    moe_hist, moe_fused = serve_kernels(torch, rec, ids_moe, e, reps,
+                                        "serve_moe_dispatch")
+    del rec
+
+    # (d) times on batch 0's prefilled cache: one decode step, its 48
+    # dispatches, a profiled step
+    with torch.inference_mode():
+        tok = eng._next(logits).to(torch.int32)
+        step_ms = cuda_ms(torch, lambda: eng._decode(tok, cache), reps)
+        last = [c["ids"] for c in cap_k[-per_step:]]
+        disp_ms = cuda_ms(torch, lambda: [moe._dispatch_tables(
+            i[None], e, cap) for i in last], reps)
+        prof = serve_profile(torch, eng, tok, cache)
+    del logits, cache, tok
+    peak = torch.cuda.max_memory_allocated() - base
+    res = {"phase": "serve", "arch": SERVE_ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "experts": cfg.num_experts,
+           "top_k": cfg.top_k, "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "params": n_params, "param_bytes": param_bytes,
+           "init_s": init_s, "requests": SERVE_REQUESTS,
+           "batch": SERVE_BATCH, "max_len": SERVE_MAX_LEN,
+           "batches": [[r.rid for r in b] for b in batches],
+           "classes": classes, "decode_steps": n_steps,
+           "dispatch_capacity": cap,
+           "census": {"schedule": {k: sched[k] for k in (
+               "histogram", "fused_pass")}, "per_decode_step": {
+               "histogram": per_step, "fused_pass": per_step,
+               "host_reads": 0}, "run": {k: counts[k] for k in (
+                   "histogram", "fused_pass", "host_reads")}},
+           "syncs_in_steps": sum(s["syncs"] for s in steps),
+           "steps_with_syncs": [i for i, s in enumerate(steps)
+                                if s["syncs"]][:10],
+           "first_sync": next((s["sync_message"] for s in steps
+                               if s["syncs"]), None),
+           "engines_equal": {"dispatches": len(cap_k), "tokens": True},
+           "serve_wall_ms": serve_ms, "new_tokens": new_tokens,
+           "serve_tokens_per_s": new_tokens / (serve_ms / 1e3),
+           "prefill": prefill, "prefill_ms": prefill[0]["ms"],
+           "prefill_ms_per_token": prefill[0]["ms"] / prefill[0]["tokens"],
+           "decode_step_ms": step_ms,
+           "decode_tokens_per_s": SERVE_BATCH / (step_ms / 1e3),
+           "dispatch_ms": disp_ms, "dispatch_share": disp_ms / step_ms,
+           "step_bytes": step_bytes,
+           "step_bound_ms": bound_ms(step_bytes),
+           "peak_mem_bytes": peak, "profile": prof}
+    emit(res)
+    del eng, eng_a, params, leaves, emb, cap_k, cap_a, plain_prefill
+    return dict(res, launches=counts, kernels={
+        "histogram_moe_dispatch": (moe_hist, counts["histogram"] - 1),
+        "fused_pass_moe_dispatch": (moe_fused, counts["fused_pass"] - 1),
+        "fused_pass_admission": (adm_fused, sched["fused_pass"])},
+        admission_histogram=adm_hist)
+
+
+# --------------------------------------------------------------------------
 # phase 5: the out-of-core sort (paper §5) and its merge kernel
 # --------------------------------------------------------------------------
 
@@ -2444,6 +2865,28 @@ def run(args) -> int:
     environment(torch)
     build()
 
+    # the serve phase: Qwen3-30B-A3B at full width through ServeEngine (its
+    # own counted runs; the 61 GB of parameters freed before the next phase)
+    serve = serve_phase(torch, np, args.reps, dev)
+    need(all(serve["launches"][k] > 0 for k in ("histogram", "fused_pass")),
+         f"a kernel of the serve path was not launched: {serve['launches']}")
+    torch.cuda.empty_cache()
+    need(torch.cuda.memory_allocated() < (1 << 30),
+         f"serve: {torch.cuda.memory_allocated()} bytes still allocated")
+    src = "src/repro_torch/kernels/csrc/"
+    serve_rows = [
+        dict(name=name, route="cuda",
+             source=src + ("histogram.cu" if name.startswith("histogram")
+                           else "fused_pass.cu"),
+             replaces=("src/repro/kernels/histogram.py:28"
+                       if name.startswith("histogram")
+                       else "src/repro/kernels/fused.py:129"),
+             launches=launches, **_k(res), bound_by="bytes",
+             library_ms=res["library_ms"])
+        for name, (res, launches) in serve["kernels"].items()]
+    if args.only == "serve":
+        return finish(torch, serve_rows)
+
     # phase 3: kernels against their plain versions at main-path shapes
     n = 1 << args.log2n
     rng = np.random.default_rng(11)
@@ -2537,7 +2980,6 @@ def run(args) -> int:
                                            "local_sort", "merge")),
          f"a kernel of the ooc path was not launched: {ooc_launches}")
 
-    src = "src/repro_torch/kernels/csrc/"
     kernels = [
         dict(name="histogram", route="cuda", source=src + "histogram.cu",
              replaces="src/repro/kernels/histogram.py:28",
@@ -2628,6 +3070,7 @@ def run(args) -> int:
             **_k(lib_res[name]),
             bound_by=lib_res[name].get("bound_by", "bytes"),
             library_ms=lib_res[name]["library_ms"]))
+    kernels += serve_rows
     emit({"phase": "summary", "main_path": "uint32_uniform_kv",
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],
           "torch_sort_ms": main["torch_sort_ms"], "d9_sort_ms": d9["ms"],
@@ -2635,7 +3078,16 @@ def run(args) -> int:
           "d16_sort_ms": wide[16]["sort"]["ms"],
           "lsd_kv_d8_ms": s2["lsd"]["uint32_kv_d8"]["by_kpb"],
           "lsd_d5_ms": s2["lsd"]["uint32_d5"]["by_kpb"],
-          "dist_kv_ms": {c: dres["times"][c]["ms"] for c in (1, 4)}})
+          "dist_kv_ms": {c: dres["times"][c]["ms"] for c in (1, 4)},
+          "serve_decode_step_ms": serve["decode_step_ms"],
+          "serve_decode_tokens_per_s": serve["decode_tokens_per_s"],
+          "serve_step_bound_ms": serve["step_bound_ms"]})
+    return finish(torch, kernels)
+
+
+def finish(torch, kernels) -> int:
+    """The last three lines: the kernels, the card's name and power limit,
+    and the result."""
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2655,6 +3107,8 @@ def main(argv=None) -> int:
                         help="log2 of the largest key count (default 28)")
     parser.add_argument("--reps", type=int, default=3,
                         help="timed repetitions per measurement")
+    parser.add_argument("--only", choices=("serve",),
+                        help="run only this phase (a quick check)")
     args = parser.parse_args(argv)
     try:
         return run(args)

@@ -1,0 +1,13 @@
+"""Mamba2-1.3B: SSD (state-space duality), attention-free. [arXiv:2405.21060]
+
+O(1) decode state => runs the long_500k cell natively.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-1.3b", family="ssm",
+    n_layers=48, d_model=2048, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab=50280,
+    ssm_state=128, ssm_head_dim=64, ssm_expand=2,
+    supports_long_context=True,
+)

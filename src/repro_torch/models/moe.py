@@ -1,0 +1,174 @@
+"""Mixture-of-Experts layer with *sort-based* token dispatch: port of
+``repro.models.moe``.
+
+The integration point of the paper: routing top-k tokens to E experts is a
+single hybrid-radix counting pass on the expert id (E <= 2^d: qwen3's 128
+experts are one d=7 digit, kimi-k2's 384 one d=9 digit).  The dispatch is
+``repro_torch.core.segmented.capacity_dispatch`` — histogram, prefix-sum,
+scatter (§4.1 steps 1–3) with the capacity row playing the paper's reserved
+memory chunk (§4.4) — over ``core.plan.single_pass_partition``: on the GPU
+one prologue histogram and one fused counting pass (the hand-written
+kernels of ``csrc/histogram.cu`` and ``csrc/fused_pass.cu``), on the CPU
+the argsort engine (``engine=None``), or the kernels' plain versions with
+``engine="kernel"``.
+
+Dispatch is *grouped*: tokens are viewed as (G, T/G), and each group is
+dispatched by its own ``capacity_dispatch`` call (two launches a group).
+The combine reads each token's k expert outputs back through the dispatch's
+``position`` / ``kept`` and sums them over k: a gather, not a scatter-add,
+so it has no float atomics and gives the same bits on every run whose
+dispatch tables are the same.
+
+A GShard-style dense one-hot dispatch is kept as the baseline
+(``moe_dispatch="dense"``): same result, more memory traffic.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.segmented import capacity_dispatch
+from repro_torch.models.layers import dense_init, normal
+
+_F32 = torch.float32
+
+
+def init_moe(generator, cfg, dtype, device=None):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": dense_init(generator, d, e, _F32, device=device),  # fp32
+        "w_gate": normal(generator, (e, d, f), dtype, device),
+        "w_up": normal(generator, (e, d, f), dtype, device),
+        "w_down": normal(generator, (e, f, d), dtype, device),
+    }
+
+
+def _route(x_flat, router, top_k: int):
+    """(weights (T, k), ids (T, k) int32, aux): the top-k experts of each
+    token in ``jax.lax.top_k``'s order — descending probability, the lower
+    expert id first among equal ones (a stable descending sort;
+    ``torch.topk`` does not promise that order)."""
+    logits = x_flat.to(_F32) @ router                      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = srt.values[:, :top_k], srt.indices[:, :top_k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    # load-balancing auxiliary (Switch-style)
+    t, e = probs.shape
+    # counted with a scatter: ``torch.bincount`` reads its maximum back
+    top1 = torch.zeros(e, dtype=torch.int32, device=probs.device)
+    top1.scatter_add_(0, ids[:, 0], torch.ones_like(ids[:, 0],
+                                                    dtype=torch.int32))
+    frac_tokens = top1.to(_F32) / t
+    frac_probs = probs.mean(dim=0)
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    return weights, ids.to(torch.int32), aux
+
+
+def _expert_ffn(buf, params):
+    """buf: (..., E, C, d) expert-major tokens -> (..., E, C, d)."""
+    h = F.silu(torch.einsum("...ecd,edf->...ecf", buf, params["w_gate"]))
+    h = h * torch.einsum("...ecd,edf->...ecf", buf, params["w_up"])
+    return torch.einsum("...ecf,efd->...ecd", h, params["w_down"])
+
+
+def _dispatch_tables(flat_ids, e: int, capacity: int,
+                     engine: Optional[str] = None):
+    """One ``capacity_dispatch`` per group of (G, m) expert ids: the
+    reference's ``vmap`` over groups, two kernel launches a group.
+    Returns (gather_idx (G,E,C), slot_valid, position (G,m), kept)."""
+    cds = [capacity_dispatch(row, e, capacity, engine=engine)
+           for row in flat_ids]
+    return tuple(torch.stack(f) for f in zip(*[
+        (cd.gather_idx, cd.slot_valid, cd.position, cd.kept) for cd in cds]))
+
+
+def _sort_dispatch(xg, ids, wts, params, e: int, capacity: int,
+                   engine: Optional[str] = None):
+    """Sort-based dispatch/combine over (G, Tg, ·) grouped tokens."""
+    g, tg, k = ids.shape
+    d = xg.shape[-1]
+    m = tg * k
+    flat_ids = ids.reshape(g, m)
+    gather_idx, slot_valid, position, kept = _dispatch_tables(
+        flat_ids, e, capacity, engine)
+    token_of = torch.clamp(gather_idx, max=m - 1).long() // k   # (G,E,C)
+    rows = torch.arange(g, device=xg.device)[:, None, None]
+    buf = xg[rows, token_of]                                     # (G,E,C,d)
+    buf = buf.masked_fill(~slot_valid[..., None], 0).to(xg.dtype)
+    out = _expert_ffn(buf, params)                               # (G,E,C,d)
+
+    # combine: each token's k slots gathered back and summed over k
+    slot = torch.where(kept, flat_ids.long() * capacity + position.long(), 0)
+    picked = torch.gather(out.reshape(g, e * capacity, d), 1,
+                          slot[..., None].expand(g, m, d))       # (G,m,d)
+    w = wts.reshape(g, m)[..., None].to(out.dtype)
+    contrib = (picked * w).masked_fill(~kept[..., None], 0)
+    return contrib.reshape(g, tg, k, d).sum(dim=2)               # (G,Tg,d)
+
+
+def _group_dispatch_dense(xg, ids, wts, params, e: int, capacity: int):
+    """GShard-style dense one-hot dispatch of one group (the baseline)."""
+    tg, k = ids.shape
+    onehot = F.one_hot(ids.long(), e).to(torch.int32)        # (Tg, k, E)
+    pos = (torch.cumsum(onehot.reshape(tg * k, e), 0, dtype=torch.int32)
+           .reshape(tg, k, e) - onehot)
+    kept = (pos < capacity) & (onehot > 0)
+    # a slot past the end is all zeros (``jax.nn.one_hot``'s out of range)
+    poh = F.one_hot(torch.where(kept, pos, capacity).long(),
+                    capacity + 1)[..., :capacity].to(xg.dtype)  # (Tg,k,E,C)
+    mask = poh * kept[..., None].to(xg.dtype)
+    buf = torch.einsum("tkec,td->ecd", mask, xg)             # dense scatter
+    out = _expert_ffn(buf, params)
+    per_assign = torch.einsum("tkec,ecd->tkd", mask, out)
+    return torch.sum(per_assign * wts[..., None].to(out.dtype), dim=1)
+
+
+def moe_layer(params, x, cfg, *, groups: int = 1,
+              engine: Optional[str] = None):
+    """x: (B, S, d) -> (B, S, d), aux loss scalar.  ``engine`` selects the
+    dispatch's partition engine (``None``: the kernels on CUDA, argsort on
+    the CPU)."""
+    b, s, d = x.shape
+    t = b * s
+    g = groups if t % groups == 0 else 1
+    x_flat = x.reshape(t, d)
+    wts, ids, aux = _route(x_flat, params["router"], cfg.top_k)
+    tg = t // g
+    capacity = max(4, int(cfg.capacity_factor * tg * cfg.top_k
+                          / cfg.num_experts))
+    capacity = min(capacity, tg * cfg.top_k)
+    xg = x_flat.reshape(g, tg, d)
+    ids_g = ids.reshape(g, tg, cfg.top_k)
+    wts_g = wts.reshape(g, tg, cfg.top_k)
+    if cfg.moe_dispatch == "sort":
+        out = _sort_dispatch(xg, ids_g, wts_g, params, cfg.num_experts,
+                             capacity, engine)
+    else:
+        out = torch.stack([
+            _group_dispatch_dense(xg[i], ids_g[i], wts_g[i], params,
+                                  cfg.num_experts, capacity)
+            for i in range(g)])
+    return out.reshape(b, s, d), aux
+
+
+# --- contract declaration, as data (the reference's, at the port's entry)
+# The sort-path MoE dispatch is one capacity_dispatch per token group: ONE
+# counting pass (prologue histogram + fused launch) with the iota
+# permutation riding as the single value leaf.
+ANALYSIS_CONTRACT = {
+    "entry": "repro_torch.core.segmented.capacity_dispatch",
+    "census": {
+        "launch_total": "2",
+        "while_body_launches": "[]",
+        "fused_grid": "ceil_div(g_max, B)",
+    },
+    "sort_free": True,
+    "donation": {"_fused_pass_kernel": "1 + vals"},
+    "transfer": {
+        "sweep_kernels": ["_hist_kernel", "_fused_pass_kernel"],
+        "bytes": "(2 * passes + 1) * n_pad * kb + 2 * passes * n_pad * vb",
+    },
+}

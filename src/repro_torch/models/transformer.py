@@ -1,0 +1,351 @@
+"""Config-driven model assembly for all assigned architecture families: port
+of ``repro.models.transformer``.
+
+Families:
+  dense  — pre-norm GQA + SwiGLU (internlm2, deepseek, phi4; musicgen over
+           EnCodec-token stub; internvl2 with patch-embedding stub frontend)
+  moe    — GQA + sort-dispatched MoE FFN (qwen3-moe, kimi-k2)
+  ssm    — Mamba2 SSD blocks, attention-free
+  hybrid — Hymba: parallel attention+SSM heads per block, SWA except listed
+           global layers, + SwiGLU FFN
+
+The reference stacks its layers along a leading L dim and scans them; the
+port keeps one dict of tensors per layer (``params["layers"]``, a list) and
+loops over them in Python, and its decode cache holds one tensor per layer
+(tuples) with a Python-int ``length``, so a decode step reads nothing back
+from the device.  ``params_from_reference`` carries the reference's
+parameters across.
+
+Only values are computed here: ``loss_fn`` gives the loss's value (the
+reference's ``remat`` knob has no counterpart yet).  ``decode_step``'s
+``engine`` selects the MoE dispatch's partition engine (``None``: the
+kernels on CUDA, argsort on the CPU), which ``ServeEngine`` sets.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import torch_dtype
+from repro_torch.core.interop import resolve_device, to_tensor
+from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
+
+_F32 = torch.float32
+_ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
+
+
+# ----------------------------- init -----------------------------------------
+
+def _init_block(gen, cfg, dtype, device):
+    p: Dict[str, Any] = {}
+    d = cfg.d_model
+    ones = lambda: torch.ones(d, dtype=_F32, device=device)  # noqa: E731
+    if cfg.family in _ATTN_FAMILIES:
+        p["attn_norm"] = ones()
+        p["attn"] = L.init_attention(gen, cfg, dtype, device)
+        p["ffn_norm"] = ones()
+        if cfg.is_moe:
+            p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dtype, device)
+    elif cfg.family == "ssm":
+        p["norm"] = ones()
+        p["ssm"] = SSM.init_ssm(gen, cfg, dtype, device)
+    elif cfg.family == "hybrid":
+        p["in_norm"] = ones()
+        p["attn"] = L.init_attention(gen, cfg, dtype, device)
+        p["ssm"] = SSM.init_ssm(gen, cfg, dtype, device)
+        p["b_attn"] = torch.tensor(0.5, dtype=_F32, device=device)
+        p["b_ssm"] = torch.tensor(0.5, dtype=_F32, device=device)
+        p["ffn_norm"] = ones()
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dtype, device)
+    else:
+        raise ValueError(cfg.family)
+    return p
+
+
+def init_params(cfg, generator: Optional[torch.Generator] = None,
+                device=None):
+    """Random parameters with the reference's shapes, dtypes and scales
+    (normal·0.02, ``conv_w`` normal·0.1, ``A_log`` 0, ``D`` 1, norms 1),
+    drawn from ``generator`` (a ``torch.Generator`` on ``device``; seed 0
+    when omitted).  ``device`` is the GPU unless the caller says otherwise;
+    without one this raises.  The draws cannot match ``jax.random``:
+    carry the reference's own parameters with ``params_from_reference``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dtype = torch_dtype(cfg)
+    v, d = cfg.padded_vocab, cfg.d_model
+    params = {
+        "embed": L.normal(generator, (v, d), dtype, dev),
+        "final_norm": torch.ones(d, dtype=_F32, device=dev),
+        "layers": [_init_block(generator, cfg, dtype, dev)
+                   for _ in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, d, v, dtype, device=dev)
+    return params
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_reference(cfg, params, device=None):
+    """The port's parameters from the reference's ``init_params`` tree
+    (numpy arrays, or arrays ``np.asarray`` takes; bfloat16 crosses as its
+    bit pattern): the leading L dim of ``params["layers"]`` is un-stacked
+    into one dict per layer.  ``device`` as in :func:`init_params`."""
+    dev = resolve_device(device)
+    conv = lambda a: to_tensor(np.array(a), dev)  # noqa: E731
+    out = {k: conv(v) for k, v in params.items() if k != "layers"}
+    stacked = _tree_map(conv, params["layers"])
+    out["layers"] = [_tree_map(lambda t, i=i: t[i], stacked)
+                     for i in range(cfg.n_layers)]
+    return out
+
+
+def _windows(cfg) -> List[int]:
+    """Per-layer attention window (0 = full attention)."""
+    w = [cfg.attn_window] * cfg.n_layers
+    for i in cfg.global_attn_layers:
+        w[i] = 0
+    return w
+
+
+def cfg_groups(cfg) -> int:
+    return cfg.dispatch_groups
+
+
+# ----------------------------- forward --------------------------------------
+
+def _block_fwd(bp, x, cfg, window, positions):
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    if cfg.family in _ATTN_FAMILIES:
+        h, _ = L.attention(bp["attn"], L.rms_norm(x, bp["attn_norm"],
+                                                  cfg.rms_eps),
+                           cfg, positions=positions, window=window)
+        x = x + h
+        y = L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps)
+        if cfg.is_moe:
+            m, aux = MOE.moe_layer(bp["moe"], y, cfg, groups=cfg_groups(cfg))
+            x = x + m
+        else:
+            x = x + L.mlp(bp["mlp"], y)
+    elif cfg.family == "ssm":
+        x = x + SSM.ssm_forward(bp["ssm"], L.rms_norm(x, bp["norm"],
+                                                      cfg.rms_eps), cfg)
+    elif cfg.family == "hybrid":
+        y = L.rms_norm(x, bp["in_norm"], cfg.rms_eps)
+        a, _ = L.attention(bp["attn"], y, cfg, positions=positions,
+                           window=window)
+        s = SSM.ssm_forward(bp["ssm"], y, cfg)
+        x = x + (bp["b_attn"] * a.to(_F32)
+                 + bp["b_ssm"] * s.to(_F32)).to(x.dtype)
+        x = x + L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps))
+    return x, aux
+
+
+def _embed_inputs(params, cfg, batch):
+    """batch: {"tokens": (B,S)} (+ "patches": (B,P,d) for vlm); numpy
+    inputs go to the parameters' device."""
+    embed = params["embed"]
+    tokens = torch.as_tensor(batch["tokens"], device=embed.device)
+    x = embed[tokens.long()]
+    if cfg.frontend == "vision_patches":
+        patches = torch.as_tensor(batch["patches"], device=embed.device)
+        x = torch.cat([patches.to(x.dtype), x], dim=1)    # precomputed stub
+    return x
+
+
+def _head(params, cfg, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+def forward(params, cfg, batch):
+    """Full-sequence forward -> (logits (B, S_total, V), aux)."""
+    x = _embed_inputs(params, cfg, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    for bp, w in zip(params["layers"], _windows(cfg)):
+        x, a = _block_fwd(bp, x, cfg, w, positions)
+        aux = aux + a
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _head(params, cfg, x), aux
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token cross-entropy (its value); for vlm the patch positions are
+    excluded."""
+    logits, aux = forward(params, cfg, batch)
+    tokens = torch.as_tensor(batch["tokens"], device=logits.device)
+    n_prefix = logits.shape[1] - tokens.shape[1]           # vlm patch positions
+    lf = logits[:, n_prefix:, :][:, :-1, :].to(_F32)
+    targets = tokens[:, 1:].long()
+    m = lf.amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    gold = torch.gather(lf, -1, targets[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce + 0.01 * aux / cfg.n_layers, {"ce": ce, "aux": aux}
+
+
+# ----------------------------- decode cache ---------------------------------
+
+class DecodeCache(NamedTuple):
+    kv_k: Optional[Tuple[torch.Tensor, ...]]       # L × (B, T, KV, hd)
+    kv_v: Optional[Tuple[torch.Tensor, ...]]
+    ssm_state: Optional[Tuple[torch.Tensor, ...]]  # L × (B, H, P, N) f32
+    ssm_conv: Optional[Tuple[torch.Tensor, ...]]   # L × (B, K-1, conv_dim)
+    length: int                                    # tokens already in cache
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None,
+               device=None) -> DecodeCache:
+    """An empty cache on ``device`` (the GPU unless the caller says
+    otherwise; without one this raises)."""
+    dev = resolve_device(device)
+    dtype = dtype or torch_dtype(cfg)
+    n = cfg.n_layers
+    zeros = lambda shp, dt: tuple(torch.zeros(shp, dtype=dt, device=dev)  # noqa: E731
+                                  for _ in range(n))
+    kv_k = kv_v = ssm_state = ssm_conv = None
+    if cfg.has_attention:
+        shp = (batch, max_len, cfg.n_kv_padded, cfg.head_dim)
+        kv_k, kv_v = zeros(shp, dtype), zeros(shp, dtype)
+    if cfg.has_ssm:
+        ssm_state = zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), _F32)
+        ssm_conv = zeros((batch, SSM.CONV_K - 1, SSM.conv_dim(cfg)), dtype)
+    return DecodeCache(kv_k, kv_v, ssm_state, ssm_conv, 0)
+
+
+# ----------------------------- prefill --------------------------------------
+
+def _block_prefill(bp, x, cfg, window, positions):
+    """Like _block_fwd but collects the per-layer decode cache."""
+    kv = ssm_c = None
+    if cfg.family in _ATTN_FAMILIES:
+        h, kv = L.attention(bp["attn"], L.rms_norm(x, bp["attn_norm"],
+                                                   cfg.rms_eps),
+                            cfg, positions=positions, window=window)
+        x = x + h
+        y = L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps)
+        if cfg.is_moe:
+            m, _ = MOE.moe_layer(bp["moe"], y, cfg, groups=cfg_groups(cfg))
+            x = x + m
+        else:
+            x = x + L.mlp(bp["mlp"], y)
+    elif cfg.family == "ssm":
+        h, ssm_c = SSM.ssm_forward(bp["ssm"], L.rms_norm(x, bp["norm"],
+                                                         cfg.rms_eps),
+                                   cfg, return_cache=True)
+        x = x + h
+    elif cfg.family == "hybrid":
+        y = L.rms_norm(x, bp["in_norm"], cfg.rms_eps)
+        a, kv = L.attention(bp["attn"], y, cfg, positions=positions,
+                            window=window)
+        s, ssm_c = SSM.ssm_forward(bp["ssm"], y, cfg, return_cache=True)
+        x = x + (bp["b_attn"] * a.to(_F32)
+                 + bp["b_ssm"] * s.to(_F32)).to(x.dtype)
+        x = x + L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps))
+    return x, kv, ssm_c
+
+
+def prefill(params, cfg, batch, *, max_len: int = 0):
+    """Process the prompt; return (last-token logits (B,1,V), DecodeCache).
+
+    ``max_len`` reserves cache slots beyond the prompt (0 = exactly prompt).
+    """
+    x = _embed_inputs(params, cfg, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    pad = max(max_len, s) - s
+    kvs, ssms = [], []
+    for bp, w in zip(params["layers"], _windows(cfg)):
+        x, kv, ssm_c = _block_prefill(bp, x, cfg, w, positions)
+        kvs.append(kv)
+        ssms.append(ssm_c)
+    x = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.rms_eps)
+    logits = _head(params, cfg, x)
+
+    kv_k = kv_v = ssm_state = ssm_conv = None
+    if cfg.has_attention:
+        grow = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))  # noqa: E731
+        kv_k = tuple(grow(k) for k, _ in kvs)
+        kv_v = tuple(grow(v) for _, v in kvs)
+    if cfg.has_ssm:
+        ssm_state = tuple(c.state for c in ssms)
+        ssm_conv = tuple(c.conv for c in ssms)
+    return logits, DecodeCache(kv_k, kv_v, ssm_state, ssm_conv, s)
+
+
+# ----------------------------- decode ---------------------------------------
+
+def _block_decode(bp, x, cfg, window, cache_sl, length, engine):
+    """One layer, one token. cache_sl: this layer's cache tensors."""
+    kv_k, kv_v, s_state, s_conv = cache_sl
+    positions = torch.full((x.shape[0], 1), length, dtype=torch.int32,
+                           device=x.device)
+    if cfg.family in _ATTN_FAMILIES:
+        h, (nk, nv) = L.attention(bp["attn"],
+                                  L.rms_norm(x, bp["attn_norm"], cfg.rms_eps),
+                                  cfg, positions=positions,
+                                  kv_cache=(kv_k, kv_v), cache_len=length,
+                                  window=window)
+        x = x + h
+        y = L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps)
+        if cfg.is_moe:
+            m, _ = MOE.moe_layer(bp["moe"], y, cfg, groups=cfg_groups(cfg),
+                                 engine=engine)
+            x = x + m
+        else:
+            x = x + L.mlp(bp["mlp"], y)
+        return x, (nk, nv, s_state, s_conv)
+    if cfg.family == "ssm":
+        h, nc = SSM.ssm_decode_step(bp["ssm"],
+                                    L.rms_norm(x, bp["norm"], cfg.rms_eps),
+                                    SSM.SSMCache(s_state, s_conv), cfg)
+        return x + h, (kv_k, kv_v, nc.state, nc.conv)
+    if cfg.family == "hybrid":
+        y = L.rms_norm(x, bp["in_norm"], cfg.rms_eps)
+        a, (nk, nv) = L.attention(bp["attn"], y, cfg, positions=positions,
+                                  kv_cache=(kv_k, kv_v), cache_len=length,
+                                  window=window)
+        s, nc = SSM.ssm_decode_step(bp["ssm"], y,
+                                    SSM.SSMCache(s_state, s_conv), cfg)
+        x = x + (bp["b_attn"] * a.to(_F32)
+                 + bp["b_ssm"] * s.to(_F32)).to(x.dtype)
+        x = x + L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps))
+        return x, (nk, nv, nc.state, nc.conv)
+    raise ValueError(cfg.family)
+
+
+def decode_step(params, cfg, token, cache: DecodeCache, *,
+                engine: Optional[str] = None):
+    """token: (B, 1) int -> (logits (B, 1, V), updated cache).  The given
+    cache is left as it was."""
+    embed = params["embed"]
+    x = embed[torch.as_tensor(token, device=embed.device).long()]
+    n = cfg.n_layers
+    fields = [cache.kv_k, cache.kv_v, cache.ssm_state, cache.ssm_conv]
+    per_layer = [f if f is not None else (None,) * n for f in fields]
+    new = [[] for _ in fields]
+    for i, (bp, w) in enumerate(zip(params["layers"], _windows(cfg))):
+        x, sl = _block_decode(bp, x, cfg, w, [f[i] for f in per_layer],
+                              cache.length, engine)
+        for acc, t in zip(new, sl):
+            acc.append(t)
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = _head(params, cfg, x)
+    out = [tuple(acc) if f is not None else None
+           for acc, f in zip(new, fields)]
+    return logits, DecodeCache(*out, length=cache.length + 1)

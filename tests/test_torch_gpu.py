@@ -1411,3 +1411,135 @@ def test_length_bucketing_on_card_equals_cpu(dev):
         assert np.array_equal(np.sort(order), np.arange(x.size))
     order, _ = length_bucketed_batches(x, 1 << 16)
     assert np.array_equal(order, want[0])           # the host route: stable
+
+
+# --------------------------------------------------------------------------
+# the serving path: the model zoo, the MoE dispatch and ServeEngine
+# --------------------------------------------------------------------------
+
+#: the port on the card against the port on the CPU on the same float32
+#: parameters (matmuls without TF32, torch's default): the two sum in
+#: different orders, so logits and caches agree to rounding, not bits
+SERVE_ATOL = 1e-4
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _near(got, want, what):
+    err = float((got.cpu() - want).abs().max())
+    assert err <= SERVE_ATOL, (what, err)
+
+
+def _cache_near(got, want):
+    for name in ("kv_k", "kv_v", "ssm_state", "ssm_conv"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert (g is None) == (w is None)
+        if g is not None:
+            for i, (a, b) in enumerate(zip(g, w)):
+                _near(a, b, f"{name}[{i}]")
+    assert got.length == want.length
+
+
+@pytest.mark.parametrize("arch", [
+    "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b", "musicgen_medium",
+    "internlm2_1_8b", "deepseek_67b", "phi4_mini_3_8b", "deepseek_7b",
+    "hymba_1_5b", "mamba2_1_3b", "internvl2_26b"])
+def test_models_on_card_equal_cpu(dev, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    gpu = _to(cpu, dev)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))}
+    if cfg.frontend == "vision_patches":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    gbatch = _to(batch, dev)
+    want, want_aux = forward(cpu, cfg, batch)
+    got, got_aux = forward(gpu, cfg, gbatch)
+    assert got.device.type == "cuda"
+    _near(got, want, "forward")
+    _near(got_aux, want_aux, "aux")
+    pre = lambda b: dict(b, tokens=b["tokens"][:, :8])  # noqa: E731
+    lw, cw = prefill(cpu, cfg, pre(batch), max_len=14)
+    lg, cg = prefill(gpu, cfg, pre(gbatch), max_len=14)
+    _near(lg, lw, "prefill")
+    _cache_near(cg, cw)
+    for t in range(8, 12):
+        lw, cw = decode_step(cpu, cfg, batch["tokens"][:, t:t + 1], cw)
+        lg, cg = decode_step(gpu, cfg, gbatch["tokens"][:, t:t + 1], cg)
+        _near(lg, lw, f"decode {t}")
+    _cache_near(cg, cw)
+
+
+@pytest.mark.parametrize("experts,top_k,tokens,groups,cf", [
+    (8, 2, 32, 1, 1.25), (8, 2, 32, 4, 0.1), (128, 8, 8, 1, 1.25),
+    (128, 8, 384, 1, 1.25), (128, 8, 1024, 4, 16.0), (384, 8, 4096, 4, 1.25)])
+def test_moe_dispatch_tables_on_card_equal_cpu(dev, experts, top_k, tokens,
+                                               groups, cf):
+    """The kernels' tables on the card byte-equal the CPU's argsort ones;
+    two launches a group, no host read.  (128, 8, 8): a decode step of
+    Qwen3-30B-A3B at batch 8."""
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import moe
+    rng = np.random.default_rng(experts + tokens)
+    probs = rng.random((tokens, experts)).astype(np.float32)
+    ids = np.argsort(-probs, axis=1, kind="stable")[:, :top_k].astype(
+        np.int32)
+    tg = tokens // groups
+    cap = min(max(4, int(cf * tg * top_k / experts)), tg * top_k)
+    flat = torch.from_numpy(ids.reshape(groups, tg * top_k))
+    want = moe._dispatch_tables(flat, experts, cap)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = moe._dispatch_tables(flat.to(dev), experts, cap)
+    counts = dict(COUNTS)
+    assert counts["histogram"] == groups and counts["fused_pass"] == groups
+    assert counts["host_reads"] == 0
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+
+
+def test_serve_engine_on_card_equals_cpu(dev):
+    """The smoke Qwen3 served on the card gives the CPU's batches and
+    tokens; each decode step launches one histogram and one fused pass per
+    layer and reads nothing back."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_smoke_config("qwen3_moe_30b_a3b")
+    cpu = init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    rng = np.random.default_rng(6)
+    spec = [(rng.integers(0, cfg.vocab, int(rng.integers(3, 12))).astype(
+        np.int32), int(rng.integers(4, 200))) for _ in range(7)]
+    queues = [[Request(i, p, m) for i, (p, m) in enumerate(spec)]
+              for _ in range(2)]
+    e_cpu = ServeEngine(cfg, cpu, 3, 256, device="cpu")
+    e_gpu = ServeEngine(cfg, _to(cpu, dev), 3, 256)
+    assert e_gpu.device.type == "cuda"
+    b_cpu, b_gpu = e_cpu.schedule(queues[0]), e_gpu.schedule(queues[1])
+    assert [[r.rid for r in b] for b in b_cpu] == \
+        [[r.rid for r in b] for b in b_gpu]
+    for bc, bg in zip(b_cpu, b_gpu):
+        e_cpu.generate(bc)
+        torch.cuda.synchronize()
+        reset_counts()
+        e_gpu.generate(bg)
+        counts = dict(COUNTS)
+        steps = (max(len(r.prompt) for r in bg)
+                 + max(r.max_new_tokens for r in bg))
+        assert counts["histogram"] == counts["fused_pass"] == \
+            steps * cfg.n_layers
+        assert counts["host_reads"] == 0
+        for rc, rg in zip(bc, bg):
+            assert np.array_equal(rc.generated, rg.generated), rc.rid

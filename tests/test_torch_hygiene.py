@@ -55,7 +55,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.fused, repro_torch.kernels.bitonic, "
             "repro_torch.kernels.multisplit, repro_torch.kernels.assigned, "
             "repro_torch.kernels.ops, repro_torch.core.interop, "
-            "repro_torch.data\n"
+            "repro_torch.data, repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.serve\n"
+            "import repro_torch.configs as c\n"
+            "[c.get_config(a) for a in c.ARCHS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}]\n"
             "assert not bad, bad\n")
