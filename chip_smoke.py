@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together) and drives six paths of
+(one ``nvcc`` per source, all started together) and drives seven paths of
 the port, each with the launch counters set to 0 just before it and read
 just after:
 
@@ -27,6 +27,24 @@ just after:
   step timed alone, one step's host spans and profiled device time, peak
   memory and the step's byte bound (the parameters one step reads at
   3.35 TB/s); the parameters freed before the next phase;
+
+* the training path (its ``train`` phase, second, on an empty card):
+  ``Trainer.run`` on Qwen3-30B-A3B at its full published width cut to 6
+  layers (4.36 B parameters; bf16 weights and gradients, float32 AdamW
+  moments: 52.3 GB of state from a seed), ``SyntheticLMData`` 8 x 4096
+  tokens in 8 microbatches, remat on: first one sequence's forward and
+  backward with the MoE dispatch on the kernels and on ``argsort`` (every
+  table of the forward and of the recompute, the loss and every
+  gradient's bits equal); then a warm-up step (lr 0: no parameter bit may
+  change) and 3 timed steps (CUDA events), counted: 96 histograms and 96
+  fused passes a step (6 layers x 8 microbatches, forward and recompute),
+  no host read, loss and gradient norm finite, parameters changed; one
+  profiled step (device busy, the dispatches' share); the histogram and
+  the fused pass at the step's dispatch shape (32 768 ids into 128
+  experts) against their plain versions, beside ``torch.bincount`` and
+  ``torch.sort(stable=True)`` + ``torch.bincount``; peak memory; the state
+  freed; then the smoke Qwen3 through ``Trainer`` on the card, 7 steps,
+  resumed at its step-5 checkpoint for 5 more, equal to a 10-step run;
 
 * the main path, ``repro_torch.hybrid_sort`` at its default engine (which
   must resolve to the kernels), on 2^28 uint32 keys alone and with values,
@@ -124,8 +142,8 @@ no result.
 ``--log2n`` shrinks the main sizes (the ooc input is 2^(log2n + 2) keys in
 chunks of 2^log2n, the spill budget 2^(log2n + 6) bytes, the library
 inputs 2^log2n keys): a quick check;
-``--reps`` sets the timed repetitions; ``--only serve`` runs the serve
-phase alone.  None is needed for the full run, which runs every phase at
+``--reps`` sets the timed repetitions; ``--only serve`` / ``--only
+train`` runs that phase alone.  None is needed for the full run, which runs every phase at
 full size.
 """
 from __future__ import annotations
@@ -2139,30 +2157,33 @@ def serve_kernels(torch, rec, ids, buckets, reps, label):
                               _partition_kpb(ids.numel()), label), fres
 
 
-def _counted_steps(torch, module, steps):
-    """Wrap ``module.decode_step``: per call, the launches and counted host
-    reads it made, and the synchronizing calls torch reported in it."""
+def _counted_call(torch, fn, *a, **kw):
+    """``fn(*a, **kw)``, then (its result, a record of the histogram and
+    fused-pass launches and counted host reads it made and of the
+    synchronizing calls torch reported in it)."""
     import warnings
     from repro_torch.kernels import COUNTS
+    before = dict(COUNTS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return out, dict({k: COUNTS[k] - before[k] for k in (
+        "histogram", "fused_pass", "host_reads")}, syncs=len(syncs),
+        sync_message=syncs[0][:300] if syncs else None)
 
+
+def _counted_steps(torch, module, steps):
+    """Wrap ``module.decode_step``: per call, ``_counted_call``'s record."""
     def wrap(_, fn):
         def step(*a, **kw):
-            before = dict(COUNTS)
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    out = fn(*a, **kw)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            syncs = [str(w.message) for w in caught
-                     if "called a synchronizing" in str(w.message)]
-            steps.append(dict(
-                {k: COUNTS[k] - before[k] for k in ("histogram",
-                                                    "fused_pass",
-                                                    "host_reads")},
-                syncs=len(syncs), sync_message=syncs[0][:300] if syncs
-                else None))
+            out, record = _counted_call(torch, fn, *a, **kw)
+            steps.append(record)
             return out
         return step
     return _patched(module, [("step", "decode_step")], wrap)
@@ -2478,6 +2499,349 @@ def serve_phase(torch, np, reps, dev):
         "fused_pass_moe_dispatch": (moe_fused, counts["fused_pass"] - 1),
         "fused_pass_admission": (adm_fused, sched["fused_pass"])},
         admission_histogram=adm_hist)
+
+
+# --------------------------------------------------------------------------
+# the training path: Trainer.run on Qwen3-30B-A3B at full width
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3_moe_30b_a3b"
+#: the one cut: 6 of 48 layers (AdamW's 12 bytes a parameter: 6 layers and
+#: the embedding and head are 52.3 GB of state; 48 layers would be 366 GB)
+TRAIN_LAYERS = 6
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_TIMED = 4096, 8, 8, 3
+#: H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores,
+#: float32 off them (the port's attention einsums run in float32)
+BF16_FLOP_PER_S, F32_FLOP_PER_S = 989e12, 67e12
+#: the smoke resume: a float32 model on the card, compared bit for bit;
+#: RESUME_ATOL bounds the difference should a step not be deterministic
+RESUME_ATOL = 1e-6
+
+
+def train_flops(cfg, seq, micro):
+    """(bf16, float32) matmul FLOPs of one train step from the shapes: per
+    layer the projections and every expert's capacity rows (bf16), the
+    router and the naive attention's full S x S scores and values
+    (float32); the head (bf16).  Layers run forward, recompute and
+    backward (4x the forward), the head forward and backward (3x)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv = cfg.n_heads_padded, cfg.n_kv_padded
+    cap = max(4, int(cfg.capacity_factor * seq * cfg.top_k
+                     / cfg.num_experts))
+    proj = 2 * seq * d * (h + 2 * kv) * hd + 2 * seq * h * hd * d
+    experts = 3 * 2 * cfg.num_experts * cap * d * cfg.d_ff
+    attn = 2 * 2 * h * seq * seq * hd
+    router = 2 * seq * d * cfg.num_experts
+    head = 2 * seq * d * cfg.padded_vocab
+    bf16 = micro * (cfg.n_layers * 4 * (proj + experts) + 3 * head)
+    f32 = micro * cfg.n_layers * 4 * (attn + router)
+    return bf16, f32
+
+
+def _bit_sums(torch, tree):
+    """One int64 per leaf: the sum of its bit patterns (any changed value
+    almost surely changes it), on the device."""
+    views = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return torch.stack([t.view(views[t.element_size()]).sum(
+        dtype=torch.int64) for t in _leaves(tree)])
+
+
+def _counted_train_steps(torch, step_fn, records):
+    """Wrap a train step: CUDA events around it and ``_counted_call``'s
+    record."""
+    def step(state, batch):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out, record = _counted_call(torch, step_fn, state, batch)
+        ev[1].record()
+        records.append(dict(record, events=ev, metrics=out[1],
+                            issue_ms=(time.perf_counter() - t0) * 1e3))
+        return out
+    return step
+
+
+def train_engines(torch, cfg, params, batch):
+    """One microbatch (one sequence) through ``loss_fn`` and its backward
+    (remat on) with the MoE dispatch on the kernels, then on argsort:
+    every dispatch table (the forward's and the recompute's), the loss and
+    every gradient's bits equal.  Returns the launch counts of both."""
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import loss_fn, moe
+    leaves = list(_leaves(params))
+    mb = {k: v[:1] for k, v in batch.items()}
+    runs = {}
+    for engine in ("kernel", "argsort"):
+        cap = []
+        torch.cuda.synchronize()
+        reset_counts()
+        saved = _captured_dispatch(moe, cap)
+        try:
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, _ = loss_fn(params, cfg, mb, remat=True, engine=engine)
+            loss.backward()
+        finally:
+            _restore(moe, saved)
+            for p in leaves:
+                p.requires_grad_(False)
+        sums = _bit_sums(torch, [p.grad for p in leaves])
+        for p in leaves:
+            p.grad = None
+        runs[engine] = dict(cap=cap, loss=loss.detach(), sums=sums,
+                            counts=dict(COUNTS))
+    k, a = runs["kernel"], runs["argsort"]
+    need(len(k["cap"]) == len(a["cap"]) == 2 * cfg.n_layers,
+         f"train: {len(k['cap'])} / {len(a['cap'])} dispatches captured, "
+         f"expected {2 * cfg.n_layers} (forward + recompute)")
+    for i, (x, y) in enumerate(zip(k["cap"], a["cap"])):
+        need(torch.equal(x["ids"], y["ids"]) and all(
+            s.dtype == t.dtype and torch.equal(s, t)
+            for s, t in zip(x["tables"], y["tables"])),
+            f"train: dispatch {i} differs between the engines")
+    n = cfg.n_layers
+    for i in range(n):       # the recompute runs the layers in reverse
+        fwd, again = k["cap"][i], k["cap"][2 * n - 1 - i]
+        need(torch.equal(fwd["ids"], again["ids"]) and all(
+            torch.equal(s, t) for s, t in zip(fwd["tables"],
+                                               again["tables"])),
+            f"train: layer {i}'s recomputed dispatch differs")
+    need(torch.equal(k["loss"], a["loss"]),
+         f"train: loss {float(k['loss'])} (kernel) != {float(a['loss'])}")
+    need(torch.equal(k["sums"], a["sums"]),
+         "train: the engines' gradients differ")
+    need(a["counts"]["histogram"] == 0 and a["counts"]["fused_pass"] == 0,
+         f"train: the argsort engine launched kernels {a['counts']}")
+    per = cfg.n_layers * cfg.dispatch_groups * 2
+    need(k["counts"]["histogram"] == per and k["counts"]["fused_pass"] == per,
+         f"train: one microbatch's census {k['counts']}, expected {per}")
+    return {"dispatches": len(k["cap"]), "loss": float(k["loss"]),
+            "grad_leaves": len(leaves), "tables_equal": True,
+            "loss_equal": True, "grads_bitwise_equal": True,
+            "kernel_counts": {x: k["counts"][x] for x in (
+                "histogram", "fused_pass", "host_reads")}}
+
+
+def train_profile(torch, tr, state):
+    """One more step under ``torch.profiler``, each ``capacity_dispatch``
+    a ``record_function`` range: device busy and idle share of the step,
+    the dispatches' device time (their kernels and glue) and share, the
+    histogram and fused-pass kernels' own time, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+
+    def spanned(_, fn):
+        def run(*a, **kw):
+            with record_function("train.dispatch"):
+                return fn(*a, **kw)
+        return run
+
+    saved = _patched(moe, [("dispatch", "capacity_dispatch")], spanned)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = tr.run(state, 1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        _restore(moe, saved)
+    events = _device_intervals(prof)
+    spans = _union([(a, b) for n, a, b in events if n == "train.dispatch"])
+    work = [(n, a, b) for n, a, b in events if n != "train.dispatch"]
+    busy = _measure(_union([(a, b) for _, a, b in work])) / 1e3
+    inside = _measure(_intersect(_union([(a, b) for _, a, b in work]),
+                                 spans)) / 1e3
+    by_name = {}
+    for name, a, b in work:
+        by_name.setdefault(name, [0.0, 0])
+        by_name[name][0] += (b - a) / 1e3
+        by_name[name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    kern = sum(v[0] for k, v in by_name.items()
+               if "fused_pass_kernel" in k or "hist_kernel" in k
+               or "split_total_kernel" in k)
+    return state, {"wall_ms": wall, "device_busy_ms": busy,
+                   "device_idle_share": 1 - busy / wall,
+                   "device_launches": len(work),
+                   "dispatch_spans": len([1 for n, _, _ in events
+                                          if n == "train.dispatch"]),
+                   "dispatch_device_ms": inside,
+                   "dispatch_share": inside / busy,
+                   "dispatch_kernels_device_ms": kern,
+                   "top": [{"name": k[:80], "calls": v[1], "device_ms": v[0]}
+                           for k, v in top[:12]]}
+
+
+def train_resume(torch, dev):
+    """The smoke Qwen3 on the card through ``Trainer``: 7 steps with a
+    checkpoint at 5, a new trainer resumed there and run 5 more, against
+    an uninterrupted 10-step run."""
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.train import Trainer
+    cfg = get_smoke_config(TRAIN_ARCH)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=32, global_batch=4)
+
+    def trainer(d, every):
+        return Trainer(cfg, data, d, ckpt_every=every, log_every=100,
+                       total_steps=50, microbatches=2)
+
+    with tempfile.TemporaryDirectory() as root:
+        a = os.path.join(root, "a")
+        gen = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa: E731
+        tr = trainer(a, 5)
+        state = tr.run(tr.init_or_resume(gen()), 7)
+        need(int(state.step) == 7, "train resume: the first run's step")
+        tr2 = trainer(a, 5)
+        state2 = tr2.init_or_resume(gen())
+        need(int(state2.step) == 5, f"train resume: resumed at "
+             f"{int(state2.step)}, expected 5")
+        state2 = tr2.run(state2, 5)
+        tr3 = trainer(os.path.join(root, "b"), 100)
+        state3 = tr3.run(tr3.init_or_resume(gen()), 10)
+    x, y = list(_leaves(state2)), list(_leaves(state3))
+    need(len(x) == len(y), "train resume: the states differ in structure")
+    bitwise = all(s.dtype == t.dtype and torch.equal(s, t)
+                  for s, t in zip(x, y))
+    err = max(float((s.double() - t.double()).abs().max())
+              for s, t in zip(x, y))
+    need(err <= RESUME_ATOL, f"train resume: resumed run off by {err}")
+    return {"steps": 10, "resumed_at": 5, "leaves": len(x),
+            "bitwise": bitwise, "max_abs_diff": err}
+
+
+def train_phase(torch, np, reps, dev):
+    """``Trainer.run`` on Qwen3-30B-A3B at its full published width, cut to
+    ``TRAIN_LAYERS`` layers (bf16, AdamW, remat on), on ``SyntheticLMData``
+    at 8 x 4096 tokens in 8 microbatches: (a) one sequence's forward and
+    backward on both dispatch engines (``train_engines``); (b) a warm-up
+    step (lr 0: no parameter may change) and ``TRAIN_TIMED`` timed steps,
+    counted: 96 histograms and 96 fused passes a step, no host read, loss
+    and gradient norm finite, parameters changed; (c) one profiled step;
+    (d) the histogram and the fused pass at the step's dispatch shape
+    (32 768 ids into 128 experts) against their plain versions; (e) peak
+    memory; (f) the smoke resume (``train_resume``).  Frees the state at
+    the end."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core import segmented
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import moe
+    from repro_torch.train import Trainer
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0)
+    ckpt = tempfile.TemporaryDirectory()
+    tr = Trainer(cfg, data, ckpt.name, ckpt_every=1 << 30, log_every=1,
+                 microbatches=TRAIN_MICRO)
+    t0 = time.perf_counter()
+    state = tr.init_or_resume(torch.Generator(device=dev).manual_seed(2022))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    need(abs(n_params / cfg.param_count() - 1) < 0.01,
+         f"train: {n_params} parameters against the config's "
+         f"{cfg.param_count()}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(state[:2]))
+
+    # (a) the engines on one sequence
+    engines = train_engines(torch, cfg, state.params, data.batch(0))
+
+    # (b) the counted run: a warm-up step with the dispatches captured,
+    # then the timed steps
+    records, cap, sums = [], [], []
+    tr._step_fn = _counted_train_steps(torch, tr._step_fn, records)
+    sums.append(_bit_sums(torch, state.params))
+    torch.cuda.synchronize()
+    reset_counts()
+    saved = _captured_dispatch(moe, cap)
+    try:
+        state = tr.run(state, 1)
+    finally:
+        _restore(moe, saved)
+    sums.append(_bit_sums(torch, state.params))
+    state = tr.run(state, TRAIN_TIMED, on_step=lambda s, st, m: sums.append(
+        _bit_sums(torch, st.params)))
+    torch.cuda.synchronize()
+    counts = dict(COUNTS)
+    per = 2 * cfg.n_layers * cfg.dispatch_groups * TRAIN_MICRO
+    bad = [(r["histogram"], r["fused_pass"], r["host_reads"])
+           for r in records if (r["histogram"], r["fused_pass"],
+                                r["host_reads"]) != (per, per, 0)]
+    need(not bad, f"train: step census {bad}, expected {per} + {per} "
+         f"launches and no host read")
+    steps = []
+    for i, r in enumerate(records):
+        m = {k: float(v) for k, v in r["metrics"].items()}
+        need(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+             and m["grad_norm"] > 0, f"train: step {i} metrics {m}")
+        changed = int((sums[i + 1] != sums[i]).sum())
+        steps.append(dict(step=i, ms=r["events"][0].elapsed_time(
+            r["events"][1]), issue_ms=r["issue_ms"], changed_leaves=changed,
+            syncs=r["syncs"], **m))
+    need(steps[0]["lr"] == 0.0 and steps[0]["changed_leaves"] == 0,
+         f"train: step 0 (lr 0) changed {steps[0]['changed_leaves']} leaves")
+    need(steps[2]["changed_leaves"] > 0, "train: step 2 changed no parameter")
+    timed = [s["ms"] for s in steps[1:]]
+    step_ms = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bf16, f32 = train_flops(cfg, TRAIN_SEQ, TRAIN_MICRO)
+    bound = (bf16 / BF16_FLOP_PER_S + f32 / F32_FLOP_PER_S) * 1e3
+
+    # (c) a profiled step
+    state, prof = train_profile(torch, tr, state)
+
+    # (d) the kernels at the step's dispatch shape
+    ids, e, capacity = (cap[0][k] for k in ("ids", "e", "capacity"))
+    need(ids.numel() == TRAIN_SEQ * cfg.top_k and e == cfg.num_experts,
+         f"train: dispatch of {ids.numel()} ids into {e}")
+    rec = first_pass(torch, lambda: segmented.capacity_dispatch(ids, e,
+                                                                 capacity))
+    hist, fused_res = serve_kernels(torch, rec, ids, e, reps,
+                                    "train_moe_dispatch")
+    del rec, cap
+    peak = torch.cuda.max_memory_allocated() - base
+    del state, tr
+    ckpt.cleanup()
+    torch.cuda.empty_cache()
+
+    # (f) the smoke resume
+    resume = train_resume(torch, dev)
+    res = {"phase": "train", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "experts": cfg.num_experts,
+           "top_k": cfg.top_k, "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "optimizer": cfg.optimizer, "remat": cfg.remat,
+           "params": n_params, "state_bytes": state_bytes, "init_s": init_s,
+           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+           "microbatches": TRAIN_MICRO, "dispatch_capacity": capacity,
+           "census": {"per_step": {"histogram": per, "fused_pass": per,
+                                   "host_reads": 0},
+                      "run": {k: counts[k] for k in (
+                          "histogram", "fused_pass", "host_reads")}},
+           "steps": steps, "step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "step_flops_bf16": bf16, "step_flops_f32": f32,
+           "step_bound_ms": bound, "step_bound_by": "operations",
+           "achieved_tflop_per_s": (bf16 + f32) / step_ms / 1e9,
+           "syncs_in_steps": sum(s["syncs"] for s in steps),
+           "first_sync": next((r["sync_message"] for r in records
+                               if r["syncs"]), None),
+           "profile": prof, "dispatch_share": prof["dispatch_share"],
+           "peak_mem_bytes": peak, "engines": engines, "resume": resume}
+    emit(res)
+    return dict(res, launches=counts, kernels={
+        "histogram_train_dispatch": (hist, counts["histogram"]),
+        "fused_pass_train_dispatch": (fused_res, counts["fused_pass"])})
 
 
 # --------------------------------------------------------------------------
@@ -2865,6 +3229,9 @@ def run(args) -> int:
     environment(torch)
     build()
 
+    if args.only == "train":
+        return finish(torch, run_train(torch, np, args.reps, dev))
+
     # the serve phase: Qwen3-30B-A3B at full width through ServeEngine (its
     # own counted runs; the 61 GB of parameters freed before the next phase)
     serve = serve_phase(torch, np, args.reps, dev)
@@ -2886,6 +3253,9 @@ def run(args) -> int:
         for name, (res, launches) in serve["kernels"].items()]
     if args.only == "serve":
         return finish(torch, serve_rows)
+    # the train phase: Trainer.run on Qwen3-30B-A3B at full width, 6
+    # layers (its own counted runs; the ~60 GB of state freed after it)
+    train_rows = run_train(torch, np, args.reps, dev)
 
     # phase 3: kernels against their plain versions at main-path shapes
     n = 1 << args.log2n
@@ -3070,7 +3440,7 @@ def run(args) -> int:
             **_k(lib_res[name]),
             bound_by=lib_res[name].get("bound_by", "bytes"),
             library_ms=lib_res[name]["library_ms"]))
-    kernels += serve_rows
+    kernels += serve_rows + train_rows
     emit({"phase": "summary", "main_path": "uint32_uniform_kv",
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],
           "torch_sort_ms": main["torch_sort_ms"], "d9_sort_ms": d9["ms"],
@@ -3081,8 +3451,37 @@ def run(args) -> int:
           "dist_kv_ms": {c: dres["times"][c]["ms"] for c in (1, 4)},
           "serve_decode_step_ms": serve["decode_step_ms"],
           "serve_decode_tokens_per_s": serve["decode_tokens_per_s"],
-          "serve_step_bound_ms": serve["step_bound_ms"]})
+          "serve_step_bound_ms": serve["step_bound_ms"],
+          "train_step_ms": TRAIN_SUMMARY.get("step_ms"),
+          "train_tokens_per_s": TRAIN_SUMMARY.get("tokens_per_s")})
     return finish(torch, kernels)
+
+
+#: the train phase's step time and rate, for the summary line
+TRAIN_SUMMARY = {}
+
+
+def run_train(torch, np, reps, dev):
+    """The train phase, its launches checked, the state freed; returns its
+    rows of the kernels line."""
+    train = train_phase(torch, np, reps, dev)
+    need(all(train["launches"][k] > 0 for k in ("histogram", "fused_pass")),
+         f"a kernel of the train path was not launched: {train['launches']}")
+    torch.cuda.empty_cache()
+    need(torch.cuda.memory_allocated() < (1 << 30),
+         f"train: {torch.cuda.memory_allocated()} bytes still allocated")
+    TRAIN_SUMMARY.update(step_ms=train["step_ms"],
+                         tokens_per_s=train["tokens_per_s"])
+    src = "src/repro_torch/kernels/csrc/"
+    return [dict(name=name, route="cuda",
+                 source=src + ("histogram.cu" if name.startswith("histogram")
+                               else "fused_pass.cu"),
+                 replaces=("src/repro/kernels/histogram.py:28"
+                           if name.startswith("histogram")
+                           else "src/repro/kernels/fused.py:129"),
+                 launches=launches, **_k(res), bound_by="bytes",
+                 library_ms=res["library_ms"])
+            for name, (res, launches) in train["kernels"].items()]
 
 
 def finish(torch, kernels) -> int:
@@ -3107,7 +3506,7 @@ def main(argv=None) -> int:
                         help="log2 of the largest key count (default 28)")
     parser.add_argument("--reps", type=int, default=3,
                         help="timed repetitions per measurement")
-    parser.add_argument("--only", choices=("serve",),
+    parser.add_argument("--only", choices=("serve", "train"),
                         help="run only this phase (a quick check)")
     args = parser.parse_args(argv)
     try:

@@ -13,19 +13,134 @@ as the reference does:
   * the distributed route (``dist_mesh``): ``core.distributed``'s sample
     sort over a port mesh, the indices riding as the value payload.
 
-The reference module's other half, ``SyntheticLMData``, is the trainer's
-token stream; its tokens come from ``jax.random``'s threefry generator, so
-it is ported with the LM substrate, not here.
+``SyntheticLMData`` is the trainer's restart-exact token stream: batch t
+is a pure function of (seed, t).  The reference draws it with
+``jax.random``'s threefry2x32 in its partitionable layout (jax 0.9.0's
+default): ``PRNGKey``, ``fold_in``, ``split``, 32-bit random bits, then
+``uniform`` and ``normal``.  The port computes the same generator with
+torch integer ops on int64 lanes masked to 32 bits (this torch has no
+uint32 ``>>``), so its bits and its uniforms equal the reference's, on the
+CPU and on the card alike.  The tokens ``int32(vocab ** u - 1)`` take
+``vocab ** u`` as a float64 power rounded to float32 (correctly rounded,
+so the same on every device); XLA's float32 power differs from it in
+about 0.06 % of values, which moves a token by one only where the value
+straddles an integer.  The patches take ``torch.erfinv`` for XLA's
+``erf_inv`` (float32 rounding apart).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import math
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import interop
 from repro_torch.core.segmented import counting_partition
+
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 (20 rounds), as ``jax._src.prng``'s lowering: keys and
+    counts are Python ints or int64 tensors holding uint32 values; returns
+    the two output words the same way."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = ((x2 << r) | (x2 >> (32 - r))) & _M32
+            x2 = x1 ^ x2
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def _prng_key(seed: int):
+    """``jax.random.PRNGKey(seed)``: the seed's high and low words."""
+    return (seed >> 32) & _M32, seed & _M32
+
+
+def _fold_in(key, data: int):
+    """``jax.random.fold_in``: threefry of the counts (0, data)."""
+    return _threefry2x32(key[0], key[1], 0, data & _M32)
+
+
+def _split2(key):
+    """``jax.random.split(key)`` (two keys, the partitionable layout: the
+    hash of the counts (0, i) gives key i)."""
+    return [_threefry2x32(key[0], key[1], 0, i) for i in range(2)]
+
+
+def _random_bits(key, shape, device):
+    """32-bit random bits of ``shape`` as int64 (partitionable layout: the
+    two words of the hash of each element's 64-bit index, XORed)."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = _threefry2x32(key[0], key[1], idx >> 32, idx & _M32)
+    return (b1 ^ b2).reshape(shape)
+
+
+def _uniform(key, shape, minval: float, maxval: float, device):
+    """``jax.random.uniform`` (float32): 23 mantissa bits ORed into 1.0,
+    minus 1, scaled to [minval, maxval), at least minval.  XLA fuses the
+    scale's multiply and add (one rounding); here both run in float64,
+    where they are exact, and round once to float32."""
+    bits = (_random_bits(key, shape, device) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    fused = (floats.double() * span.double() + lo.double()).float()
+    return torch.maximum(lo, fused)
+
+
+def _normal(key, shape, device):
+    """``jax.random.normal`` (float32): sqrt(2)·erfinv of a uniform on
+    (-1, 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = _uniform(key, shape, lo, 1.0, device)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2)))
+
+
+@dataclasses.dataclass
+class SyntheticLMData:
+    """Deterministic synthetic token stream: batch(step) is pure in (seed,
+    step).  Batches are made on ``device`` (the GPU unless the caller says
+    otherwise; without one the first batch raises)."""
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    num_patches: int = 0          # vlm stub: also emit patch embeddings
+    d_model: int = 0
+    device: Optional[str] = None
+
+    def batch(self, step: int) -> Dict[str, torch.Tensor]:
+        dev = interop.resolve_device(self.device)
+        key = _fold_in(_prng_key(self.seed), step)
+        # zipfian-ish token marginals: realistic softmax targets
+        k1, k2 = _split2(key)
+        u = _uniform(k1, (self.global_batch, self.seq_len), 1e-6, 1.0, dev)
+        pw = torch.pow(float(self.vocab), u.to(torch.float64)).to(
+            torch.float32)
+        tokens = torch.clamp((pw - 1.0).to(torch.int32), 0, self.vocab - 1)
+        out = {"tokens": tokens}
+        if self.num_patches:
+            out["patches"] = _normal(
+                k2, (self.global_batch, self.num_patches, self.d_model),
+                dev) * 0.02
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
 
 
 def length_bucketed_batches(lengths: np.ndarray, batch_tokens: int,

@@ -17,7 +17,11 @@ dispatched by its own ``capacity_dispatch`` call (two launches a group).
 The combine reads each token's k expert outputs back through the dispatch's
 ``position`` / ``kept`` and sums them over k: a gather, not a scatter-add,
 so it has no float atomics and gives the same bits on every run whose
-dispatch tables are the same.
+dispatch tables are the same.  The gradient keeps that property: the
+dispatch gather and the combine gather are each a ``torch.autograd.Function``
+whose backward is the mirror gather through the same tables (autograd's
+own backward of a gather is an accumulating scatter, float atomics on
+CUDA).  The tables are integers and carry no gradient.
 
 A GShard-style dense one-hot dispatch is kept as the baseline
 (``moe_dispatch="dense"``): same result, more memory traffic.
@@ -85,28 +89,74 @@ def _dispatch_tables(flat_ids, e: int, capacity: int,
         (cd.gather_idx, cd.slot_valid, cd.position, cd.kept) for cd in cds]))
 
 
+def _gather_rows(src, idx, valid):
+    """out[g, i] = src[g, idx[g, i]] where ``valid``, else 0: src (G, N, d),
+    idx / valid (G, M) -> (G, M, d)."""
+    g, mm = idx.shape
+    out = torch.gather(src, 1, idx[..., None].expand(g, mm, src.shape[-1]))
+    return out.masked_fill(~valid[..., None], 0)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The expert-major buffer: buf[g, e, c] = x[g, gather_idx[g, e, c] // k]
+    for valid slots, 0 elsewhere.  Backward: each token sums the gradient
+    of its k slots, read back through ``slot`` / ``kept`` (a gather)."""
+
+    @staticmethod
+    def forward(ctx, xg, gather_idx, slot_valid, slot, kept, k):
+        ctx.save_for_backward(slot, kept)
+        ctx.k = k
+        g, e, c = gather_idx.shape
+        token_of = (gather_idx // k).reshape(g, e * c)
+        return _gather_rows(xg, token_of, slot_valid.reshape(g, e * c)) \
+            .reshape(g, e, c, xg.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        slot, kept = ctx.saved_tensors
+        g, e, c, d = dbuf.shape
+        picked = _gather_rows(dbuf.reshape(g, e * c, d), slot, kept)
+        dx = picked.reshape(g, -1, ctx.k, d).sum(dim=2)
+        return dx, None, None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """Each routed assignment's expert output: picked[g, i] =
+    out[g, slot[g, i]] where ``kept``, else 0.  Backward: each valid slot
+    reads the gradient of the assignment ``gather_idx`` names (a gather)."""
+
+    @staticmethod
+    def forward(ctx, out, slot, kept, gather_idx, slot_valid):
+        ctx.save_for_backward(gather_idx, slot_valid)
+        g, e, c, d = out.shape
+        return _gather_rows(out.reshape(g, e * c, d), slot, kept)
+
+    @staticmethod
+    def backward(ctx, dpicked):
+        gather_idx, slot_valid = ctx.saved_tensors
+        g, e, c = gather_idx.shape
+        dout = _gather_rows(dpicked, gather_idx.reshape(g, e * c),
+                            slot_valid.reshape(g, e * c))
+        return dout.reshape(g, e, c, -1), None, None, None, None
+
+
 def _sort_dispatch(xg, ids, wts, params, e: int, capacity: int,
                    engine: Optional[str] = None):
     """Sort-based dispatch/combine over (G, Tg, ·) grouped tokens."""
     g, tg, k = ids.shape
-    d = xg.shape[-1]
     m = tg * k
     flat_ids = ids.reshape(g, m)
     gather_idx, slot_valid, position, kept = _dispatch_tables(
         flat_ids, e, capacity, engine)
-    token_of = torch.clamp(gather_idx, max=m - 1).long() // k   # (G,E,C)
-    rows = torch.arange(g, device=xg.device)[:, None, None]
-    buf = xg[rows, token_of]                                     # (G,E,C,d)
-    buf = buf.masked_fill(~slot_valid[..., None], 0).to(xg.dtype)
+    src = torch.clamp(gather_idx, max=m - 1).long()              # (G,E,C)
+    slot = torch.where(kept, flat_ids.long() * capacity + position.long(), 0)
+    buf = _Dispatch.apply(xg, src, slot_valid, slot, kept, k)    # (G,E,C,d)
     out = _expert_ffn(buf, params)                               # (G,E,C,d)
 
     # combine: each token's k slots gathered back and summed over k
-    slot = torch.where(kept, flat_ids.long() * capacity + position.long(), 0)
-    picked = torch.gather(out.reshape(g, e * capacity, d), 1,
-                          slot[..., None].expand(g, m, d))       # (G,m,d)
+    picked = _Combine.apply(out, slot, kept, src, slot_valid)    # (G,m,d)
     w = wts.reshape(g, m)[..., None].to(out.dtype)
-    contrib = (picked * w).masked_fill(~kept[..., None], 0)
-    return contrib.reshape(g, tg, k, d).sum(dim=2)               # (G,Tg,d)
+    return (picked * w).reshape(g, tg, k, -1).sum(dim=2)         # (G,Tg,d)
 
 
 def _group_dispatch_dense(xg, ids, wts, params, e: int, capacity: int):

@@ -16,10 +16,17 @@ loops over them in Python, and its decode cache holds one tensor per layer
 from the device.  ``params_from_reference`` carries the reference's
 parameters across.
 
-Only values are computed here: ``loss_fn`` gives the loss's value (the
-reference's ``remat`` knob has no counterpart yet).  ``decode_step``'s
-``engine`` selects the MoE dispatch's partition engine (``None``: the
-kernels on CUDA, argsort on the CPU), which ``ServeEngine`` sets.
+Gradients: parameters are plain leaf tensors (``requires_grad_()`` on
+them, or on copies), and ``torch.autograd`` differentiates ``loss_fn`` as
+``jax.grad`` does the reference's.  ``remat=True`` wraps each block in
+``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint(body)``: the backward recomputes the block, so an MoE
+layer's dispatch runs a second time.  ``remat_policy="save_block_io"``
+checkpoints each sub-layer instead, so the attention and FFN outputs are
+kept, as the reference's policy keeps ``attn_out`` and ``ffn_out``.
+``engine`` (``forward``, ``loss_fn``, ``decode_step``) selects the MoE
+dispatch's partition engine (``None``: the kernels on CUDA, argsort on
+the CPU), which ``ServeEngine`` and the trainer set.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core.interop import resolve_device, to_tensor
@@ -102,12 +110,15 @@ def params_from_reference(cfg, params, device=None):
     """The port's parameters from the reference's ``init_params`` tree
     (numpy arrays, or arrays ``np.asarray`` takes; bfloat16 crosses as its
     bit pattern): the leading L dim of ``params["layers"]`` is un-stacked
-    into one dict per layer.  ``device`` as in :func:`init_params`."""
+    into one dict per layer.  Every leaf owns its storage (no views), so
+    it can take ``requires_grad_()`` and in-place updates.  ``device`` as
+    in :func:`init_params`."""
     dev = resolve_device(device)
     conv = lambda a: to_tensor(np.array(a), dev)  # noqa: E731
-    out = {k: conv(v) for k, v in params.items() if k != "layers"}
+    own = lambda t: t.clone() if t._is_view() else t  # noqa: E731
+    out = {k: own(conv(v)) for k, v in params.items() if k != "layers"}
     stacked = _tree_map(conv, params["layers"])
-    out["layers"] = [_tree_map(lambda t, i=i: t[i], stacked)
+    out["layers"] = [_tree_map(lambda t, i=i: t[i].clone(), stacked)
                      for i in range(cfg.n_layers)]
     return out
 
@@ -126,30 +137,65 @@ def cfg_groups(cfg) -> int:
 
 # ----------------------------- forward --------------------------------------
 
-def _block_fwd(bp, x, cfg, window, positions):
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _recompute(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint: only the inputs are
+    kept, the rest is recomputed in the backward (no RNG in the models, so
+    none is saved)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _attn_sub(bp, x, cfg, window, positions):
+    h, _ = L.attention(bp["attn"], L.rms_norm(x, bp["attn_norm"],
+                                              cfg.rms_eps),
+                       cfg, positions=positions, window=window)
+    return h
+
+
+def _ffn_sub(bp, x, cfg, engine):
+    y = L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps)
+    if cfg.is_moe:
+        return MOE.moe_layer(bp["moe"], y, cfg, groups=cfg_groups(cfg),
+                             engine=engine)
+    return L.mlp(bp["mlp"], y), None
+
+
+def _ssm_sub(bp, x, cfg):
+    return SSM.ssm_forward(bp["ssm"], L.rms_norm(x, bp["norm"], cfg.rms_eps),
+                           cfg)
+
+
+def _mix_sub(bp, x, cfg, window, positions):
+    y = L.rms_norm(x, bp["in_norm"], cfg.rms_eps)
+    a, _ = L.attention(bp["attn"], y, cfg, positions=positions,
+                       window=window)
+    s = SSM.ssm_forward(bp["ssm"], y, cfg)
+    return (bp["b_attn"] * a.to(_F32) + bp["b_ssm"] * s.to(_F32)).to(x.dtype)
+
+
+def _mlp_sub(bp, x, cfg):
+    return L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps))
+
+
+def _block_fwd(bp, x, cfg, window, positions, engine=None, sub=_call):
+    """One block; ``sub`` runs each sub-layer (``_recompute`` for the
+    ``save_block_io`` policy, which keeps the sub-layers' outputs)."""
     aux = torch.zeros((), dtype=_F32, device=x.device)
     if cfg.family in _ATTN_FAMILIES:
-        h, _ = L.attention(bp["attn"], L.rms_norm(x, bp["attn_norm"],
-                                                  cfg.rms_eps),
-                           cfg, positions=positions, window=window)
-        x = x + h
-        y = L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps)
-        if cfg.is_moe:
-            m, aux = MOE.moe_layer(bp["moe"], y, cfg, groups=cfg_groups(cfg))
-            x = x + m
-        else:
-            x = x + L.mlp(bp["mlp"], y)
+        x = x + sub(_attn_sub, bp, x, cfg, window, positions)
+        m, a = sub(_ffn_sub, bp, x, cfg, engine)
+        x = x + m
+        if a is not None:
+            aux = a
     elif cfg.family == "ssm":
-        x = x + SSM.ssm_forward(bp["ssm"], L.rms_norm(x, bp["norm"],
-                                                      cfg.rms_eps), cfg)
+        x = x + sub(_ssm_sub, bp, x, cfg)
     elif cfg.family == "hybrid":
-        y = L.rms_norm(x, bp["in_norm"], cfg.rms_eps)
-        a, _ = L.attention(bp["attn"], y, cfg, positions=positions,
-                           window=window)
-        s = SSM.ssm_forward(bp["ssm"], y, cfg)
-        x = x + (bp["b_attn"] * a.to(_F32)
-                 + bp["b_ssm"] * s.to(_F32)).to(x.dtype)
-        x = x + L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps))
+        x = x + sub(_mix_sub, bp, x, cfg, window, positions)
+        x = x + sub(_mlp_sub, bp, x, cfg)
     return x, aux
 
 
@@ -170,28 +216,36 @@ def _head(params, cfg, x):
     return x @ head
 
 
-def forward(params, cfg, batch):
+def forward(params, cfg, batch, *, remat: bool = False,
+            engine: Optional[str] = None):
     """Full-sequence forward -> (logits (B, S_total, V), aux)."""
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     aux = torch.zeros((), dtype=_F32, device=x.device)
+    per_sub = remat and cfg.remat_policy == "save_block_io"
     for bp, w in zip(params["layers"], _windows(cfg)):
-        x, a = _block_fwd(bp, x, cfg, w, positions)
+        if remat and not per_sub:
+            x, a = _recompute(_block_fwd, bp, x, cfg, w, positions, engine)
+        else:
+            x, a = _block_fwd(bp, x, cfg, w, positions, engine,
+                              _recompute if per_sub else _call)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head(params, cfg, x), aux
 
 
-def loss_fn(params, cfg, batch):
-    """Next-token cross-entropy (its value); for vlm the patch positions are
-    excluded."""
-    logits, aux = forward(params, cfg, batch)
+def loss_fn(params, cfg, batch, *, remat: bool = True,
+            engine: Optional[str] = None):
+    """Next-token cross-entropy; for vlm the patch positions are excluded.
+    The row max is a constant to the gradient (the reference's
+    ``stop_gradient``)."""
+    logits, aux = forward(params, cfg, batch, remat=remat, engine=engine)
     tokens = torch.as_tensor(batch["tokens"], device=logits.device)
     n_prefix = logits.shape[1] - tokens.shape[1]           # vlm patch positions
     lf = logits[:, n_prefix:, :][:, :-1, :].to(_F32)
     targets = tokens[:, 1:].long()
-    m = lf.amax(dim=-1, keepdim=True)
+    m = lf.amax(dim=-1, keepdim=True).detach()
     logz = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
     gold = torch.gather(lf, -1, targets[..., None])[..., 0]
     ce = torch.mean(logz - gold)

@@ -1543,3 +1543,136 @@ def test_serve_engine_on_card_equals_cpu(dev):
         assert counts["host_reads"] == 0
         for rc, rg in zip(bc, bg):
             assert np.array_equal(rc.generated, rg.generated), rc.rid
+
+
+# --------------------------------------------------------------------------
+# the training path: the backward, the optimizers, the token stream and
+# the checkpoints
+# --------------------------------------------------------------------------
+
+#: a train step on the card against the same step on the CPU (float32,
+#: no TF32): loss and gradient norm to rounding; an updated parameter
+#: within TRAIN_ATOL, except where the two devices' rounding flips the sign
+#: of a near-zero gradient, which moves AdamW's first step by up to 2·lr
+TRAIN_ATOL = 1e-5
+
+
+def _train_case(cfg, dev, engine=None, steps=2, microbatches=2):
+    """``steps`` AdamW steps (warmup 0) of the smoke model on ``dev``: the
+    per-step metrics and the final parameters, from the CPU's parameters
+    drawn with seed 3."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainState, make_train_step
+    params = _to(init_params(cfg, torch.Generator().manual_seed(3),
+                             device="cpu"), dev)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=16, global_batch=4,
+                           seed=1, num_patches=cfg.num_patches
+                           if cfg.frontend == "vision_patches" else 0,
+                           d_model=cfg.d_model, device=str(dev))
+    opt, step = make_train_step(cfg, "adamw", warmup=0,
+                                microbatches=microbatches, engine=engine)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    metrics = []
+    for s in range(steps):
+        state, m = step(state, data.batch(s))
+        metrics.append(m)
+    return state, metrics
+
+
+@pytest.mark.parametrize("arch", [
+    "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b", "musicgen_medium",
+    "internlm2_1_8b", "deepseek_67b", "phi4_mini_3_8b", "deepseek_7b",
+    "hymba_1_5b", "mamba2_1_3b", "internvl2_26b"])
+def test_train_step_on_card_equals_cpu(dev, arch):
+    """Two train steps of every smoke config (remat on, 2 microbatches) on
+    the card against the CPU; MoE configs launch one histogram and one
+    fused pass per layer and microbatch in the forward and again in the
+    recompute, and no step reads back."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.interop import tree_flatten
+    from repro_torch.kernels import COUNTS, reset_counts
+    cfg = get_smoke_config(arch)
+    want, wm = _train_case(cfg, torch.device("cpu"))
+    torch.cuda.synchronize()
+    reset_counts()
+    got, gm = _train_case(cfg, dev)
+    counts = dict(COUNTS)
+    per = 2 * cfg.n_layers * 2 * 2 if cfg.is_moe else 0   # x remat x mb x steps
+    assert counts["histogram"] == counts["fused_pass"] == per, counts
+    assert counts["host_reads"] == 0
+    for a, b in zip(gm, wm):
+        for k in ("loss", "grad_norm", "ce", "aux"):
+            assert abs(float(a[k]) - float(b[k])) <= TRAIN_ATOL * max(
+                1.0, abs(float(b[k]))), (k, float(a[k]), float(b[k]))
+        assert float(a["lr"]) == float(b["lr"])
+    lr = float(wm[-1]["lr"])
+    off = total = 0
+    for a, b in zip(tree_flatten(got.params)[0], tree_flatten(want.params)[0]):
+        assert a.device.type == "cuda"
+        err = (a.cpu() - b).abs()
+        assert float(err.max()) <= 4.4 * lr
+        off += int((err > TRAIN_ATOL).sum())
+        total += err.numel()
+    assert off <= total // 1000, (off, total)
+
+
+def test_train_step_dispatch_engines_on_card(dev):
+    """On the card the kernels and argsort build equal dispatch tables, so
+    the backward's gathers give bit-identical parameters after two steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.interop import tree_flatten
+    cfg = get_smoke_config("qwen3_moe_30b_a3b")
+    k, km = _train_case(cfg, dev, engine="kernel")
+    a, am = _train_case(cfg, dev, engine="argsort")
+    for x, y in zip(tree_flatten(k)[0], tree_flatten(a)[0]):
+        assert torch.equal(x, y)
+    assert all(torch.equal(x["loss"], y["loss"]) for x, y in zip(km, am))
+
+
+def test_synthetic_data_on_card_equals_cpu(dev):
+    """The token stream on the card: tokens byte-equal to the CPU's (both
+    take a float64 power rounded to float32), patches within 1e-6
+    (``erfinv`` on the two devices)."""
+    from repro_torch.data import SyntheticLMData, pipeline
+    kw = dict(vocab=151936, seq_len=4096, global_batch=8, seed=0,
+              num_patches=4, d_model=64)
+    cpu = SyntheticLMData(**kw, device="cpu")
+    gpu = SyntheticLMData(**kw)
+    for step in (0, 3):
+        a, b = gpu.batch(step), cpu.batch(step)
+        assert a["tokens"].device.type == "cuda"
+        assert torch.equal(a["tokens"].cpu(), b["tokens"])
+        assert float((a["patches"].cpu() - b["patches"]).abs().max()) <= 1e-6
+    key = pipeline._split2(pipeline._fold_in(pipeline._prng_key(0), 0))[0]
+    u_gpu = pipeline._uniform(key, (64, 4096), 1e-6, 1.0, dev)
+    u_cpu = pipeline._uniform(key, (64, 4096), 1e-6, 1.0, "cpu")
+    assert torch.equal(u_gpu.cpu(), u_cpu)
+
+
+def test_checkpoint_round_trip_of_cuda_bf16(dev, tmp_path):
+    """CUDA bfloat16 leaves restore bit for bit onto the card; the async
+    writer snapshots them before an in-place update."""
+    from repro_torch.checkpoint import (AsyncCheckpointer, restore_checkpoint,
+                                        save_checkpoint)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn((257, 33), generator=gen, device=dev).to(torch.bfloat16)
+    w.view(torch.int16)[0, :2] = torch.tensor([0x7FC1, 1], dtype=torch.int16,
+                                              device=dev)
+    tree = {"w": w, "layers": [{"m": torch.randn(5, device=dev)}],
+            "count": torch.tensor(4, dtype=torch.int32, device=dev)}
+    like = _to({"w": torch.zeros_like(w), "layers": [{"m": torch.zeros(5)}],
+                "count": torch.zeros((), dtype=torch.int32)}, dev)
+    save_checkpoint(str(tmp_path / "a"), 1, tree)
+    back = restore_checkpoint(str(tmp_path / "a"), 1, like)
+    assert back["w"].device.type == "cuda" and back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"].view(torch.int16), w.view(torch.int16))
+    assert torch.equal(back["layers"][0]["m"], tree["layers"][0]["m"])
+    old = w.clone()
+    ck = AsyncCheckpointer(str(tmp_path / "b"))
+    ck.save(2, tree)
+    w.add_(1)
+    ck.wait()
+    back = restore_checkpoint(str(tmp_path / "b"), 2, like)
+    assert torch.equal(back["w"].view(torch.int16), old.view(torch.int16))

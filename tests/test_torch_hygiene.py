@@ -57,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.ops, repro_torch.core.interop, "
             "repro_torch.data, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.moe, repro_torch.models.ssm, "
-            "repro_torch.serve\n"
+            "repro_torch.serve, repro_torch.optim, repro_torch.train, "
+            "repro_torch.launch.train, repro_torch.checkpoint\n"
             "import repro_torch.configs as c\n"
             "[c.get_config(a) for a in c.ARCHS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -111,6 +112,33 @@ def test_distributed_and_bucketing_go_to_the_gpu_or_raise():
             "meta"))
     order, bounds = length_bucketed_batches(x, 1024, device="cpu")
     assert np.array_equal(order, np.arange(256)[::-1]) and bounds[-1] == 256
+
+
+def test_trainer_and_token_stream_go_to_the_gpu_or_raise(tmp_path):
+    """``Trainer`` and ``SyntheticLMData`` with no ``device=`` are the GPU:
+    without one they raise instead of running on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import train as launch
+    from repro_torch.train import Trainer
+    cfg = get_smoke_config("qwen3_moe_30b_a3b")
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    tr = Trainer(cfg, data, str(tmp_path))
+    if torch.cuda.is_available():
+        assert data.batch(0)["tokens"].device.type == "cuda"
+        state = tr.init_or_resume(0)
+        assert state.params["embed"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            data.batch(0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tr.init_or_resume(0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch.main(["--arch", "qwen3_moe_30b_a3b", "--smoke",
+                         "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    cpu = SyntheticLMData(vocab=cfg.vocab, seq_len=8, global_batch=2,
+                          device="cpu")
+    assert cpu.batch(0)["tokens"].device.type == "cpu"
 
 
 def test_work_follows_the_tensor_device():
