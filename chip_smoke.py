@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together) and drives seven paths of
+(one ``nvcc`` per source, all started together) and drives eight paths of
 the port, each with the launch counters set to 0 just before it and read
 just after:
 
@@ -46,6 +46,26 @@ just after:
   freed; then the smoke Qwen3 through ``Trainer`` on the card, 7 steps,
   resumed at its step-5 checkpoint for 5 more, equal to a 10-step run;
 
+* the launch path (its ``launch`` phase, last): Qwen3-30B-A3B at its full
+  published width cut to 2 layers (1.87 B parameters, AdamW), one train
+  step of 2 x 4096 ``SyntheticLMData`` tokens in 2 microbatches on a
+  one-rank NCCL ``DeviceMesh`` (1, 1): parameters, optimizer state and
+  batch DTensors placed by ``launch/sharding.py``, the MoE dispatch tables
+  built under ``local_map`` (so the histogram and fused-pass kernels see
+  the local tensors), held against the unsharded ``make_train_step`` on
+  the same inputs: loss, gradient norm and every updated parameter bit for
+  bit, the same histogram and fused-pass launches (8 + 8), each step timed
+  again; ``compressed_psum`` over that group bit-equal to the int8 round
+  trip; the histogram and the fused pass at the step's dispatch shape
+  (4 096 x 8 ids into 128 experts) against their plain versions; and, in
+  two processes of their own started first (their fake 256- / 512-rank
+  groups must not meet the NCCL one), ``python -m
+  repro_torch.launch.dryrun`` of
+  Qwen3-30B-A3B's ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the
+  ``pod`` and ``multipod`` meshes, each cell's row (GiB per chip, the
+  three roofline terms reckoned with the H100's constants, the
+  bottleneck, ``mfu_bound``, whether it fits 80 GB) on its own line, every
+  cell required ``ok``;
 * the main path, ``repro_torch.hybrid_sort`` at its default engine (which
   must resolve to the kernels), on 2^28 uint32 keys alone and with values,
   Zipf, AND-3, float and int64 keys: every kernel is first held to its
@@ -143,7 +163,7 @@ no result.
 chunks of 2^log2n, the spill budget 2^(log2n + 6) bytes, the library
 inputs 2^log2n keys): a quick check;
 ``--reps`` sets the timed repetitions; ``--only serve`` / ``--only
-train`` runs that phase alone.  None is needed for the full run, which runs every phase at
+train`` / ``--only launch`` runs that phase alone.  None is needed for the full run, which runs every phase at
 full size.
 """
 from __future__ import annotations
@@ -3216,6 +3236,275 @@ def ooc_phases(torch, np, log2n, reps):
     return merge_res, ooc_counts
 
 
+# --------------------------------------------------------------------------
+# the launch phase: a one-rank NCCL mesh, compressed_psum, the dry run
+# --------------------------------------------------------------------------
+
+LAUNCH_ARCH = "qwen3_moe_30b_a3b"
+#: the one cut: 2 of 48 layers.  The state (bf16 weights, float32 AdamW
+#: moments: 22.4 GB at 2 layers) is held twice at once while the
+#: unsharded step works on copies
+LAUNCH_LAYERS = 2
+LAUNCH_SEQ, LAUNCH_BATCH, LAUNCH_MICRO = 4096, 2, 2
+#: the dry run's cells: Qwen3-30B-A3B's three shapes on both meshes
+DRYRUN_MESHES = ("pod", "multipod")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun(tmp):
+    """``python -m repro_torch.launch.dryrun`` for ``LAUNCH_ARCH``, one
+    process a mesh, run at once (each fake 256- / 512-rank group must not
+    meet this process's NCCL group), with no card visible: they run on
+    meta tensors, on the host.  Returns the processes and the start."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for mesh in DRYRUN_MESHES:
+        out = os.path.join(tmp, mesh)
+        os.makedirs(out)
+        with open(os.path.join(out, "dryrun.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 LAUNCH_ARCH, "--mesh", mesh, "--out", out], cwd=HERE,
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs, time.perf_counter()
+
+
+def stop(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dryrun(procs, t0, tmp):
+    """Wait for the dry runs; print each cell's row on its own line; fail
+    unless every cell of ``DRYRUN_SHAPES`` x ``DRYRUN_MESHES`` is ``ok``."""
+    cells, tails = [], []
+    for mesh, proc in zip(DRYRUN_MESHES, procs):
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            stop(procs)
+            raise Failure(f"launch: the dry run ran past {DRYRUN_TIMEOUT_S} s")
+        with open(os.path.join(tmp, mesh, "dryrun.log")) as f:
+            tail = f.read()[-3000:]
+        need(proc.returncode == 0, f"launch: the {mesh} dry run exited "
+             f"{proc.returncode}: {tail}")
+        with open(os.path.join(tmp, mesh, "summary.json")) as f:
+            cells += json.load(f)
+        tails.append(tail)
+    seconds = time.perf_counter() - t0
+    bad = [f"{c['mesh']}/{c['shape']}: {c.get('error')}" for c in cells
+           if not c.get("ok") and not c.get("skipped")]
+    need(not bad, "launch: dry-run cells failed: " + " | ".join(bad)
+         + "\n" + "\n".join(tails))
+    rows = {}
+    for c in cells:
+        if c.get("skipped"):
+            continue
+        rows[(c["mesh"], c["shape"])] = c
+        emit({"phase": "dryrun", "reckoned_with": "H100 SXM constants "
+              "(utils/roofline.py), not measured", **{k: c[k] for k in (
+                  "arch", "mesh", "shape", "step", "chips",
+                  "mem_per_chip_gib", "t_compute_s", "t_memory_s",
+                  "t_collective_s", "bottleneck", "mfu_bound", "fits_80gb",
+                  "counted_flops_per_chip", "model_flops", "run_s")},
+              "memory": c["memory"], "collective_counts":
+              c["collective_counts"]})
+    want = {(m, sh) for m in DRYRUN_MESHES for sh in DRYRUN_SHAPES}
+    need(want <= set(rows), f"launch: dry-run cells missing: "
+         f"{sorted(want - set(rows))}")
+    return {"cells": len(rows), "seconds": seconds}
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def launch_phase(torch, np, reps, dev):
+    """(a) One train step of Qwen3-30B-A3B at its full published width, cut
+    to ``LAUNCH_LAYERS`` layers, on a one-rank NCCL ``DeviceMesh`` (1, 1):
+    parameters, optimizer state and batch DTensors placed by the sharding
+    rules, the dispatch tables built under ``local_map``; held against the
+    unsharded ``make_train_step`` on the same inputs (loss, gradient norm
+    and every updated parameter bit for bit; the same histogram and
+    fused-pass launches); each step timed again (CUDA events).  (b)
+    ``compressed_psum`` over that group bit-equal to the int8 round trip.
+    (c) The dry run of Qwen3-30B-A3B's three shapes on the pod and
+    multipod meshes, started first, one process a mesh.  (d) The
+    histogram and the fused pass at the mesh step's dispatch shape against
+    their plain versions."""
+    import dataclasses
+    import tempfile
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import segmented
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import init_params, moe
+    from repro_torch.optim import (compressed_psum, get_optimizer,
+                                   int8_compress, int8_decompress)
+    from repro_torch.train import TrainState, make_train_step
+    tmp = tempfile.TemporaryDirectory()
+    dry = start_dryrun(tmp.name)
+    try:
+        cfg = dataclasses.replace(get_config(LAUNCH_ARCH),
+                                  n_layers=LAUNCH_LAYERS)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        data = SyntheticLMData(vocab=cfg.vocab, seq_len=LAUNCH_SEQ,
+                               global_batch=LAUNCH_BATCH, seed=0,
+                               device=str(dev))
+        batch = data.batch(1)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(23),
+                             device=dev)
+        opt = get_optimizer(cfg.optimizer)
+        # step 1: the schedule's lr is above 0, so every leaf may change
+        state = TrainState(params, opt.init(params),
+                           torch.ones((), dtype=torch.int32, device=dev))
+        n_params = sum(t.numel() for t in _leaves(params))
+
+        def timed(fn, *a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            out, rec = _counted_call(torch, fn, *a)
+            ev[1].record()
+            ev[1].synchronize()
+            return out, dict(rec, ms=ev[0].elapsed_time(ev[1]),
+                             wall_ms=(time.perf_counter() - t0) * 1e3)
+
+        # (a) the unsharded step on copies, twice (the second timed)
+        _, plain = make_train_step(cfg, microbatches=LAUNCH_MICRO,
+                                   donate=False)
+        (new, m_plain), rec_plain = timed(plain, state, batch)
+        want = [t for t in _leaves(new.params)]
+        del new
+        _, rec_plain2 = timed(plain, state, batch)
+        torch.cuda.empty_cache()
+
+        # the one-rank NCCL group and its (1, 1) mesh
+        M.open_group(device_type="cuda")
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            dstate = TrainState(
+                shd.distribute(state.params, shd.param_shardings(
+                    state.params, cfg, mesh), mesh),
+                shd.distribute(state.opt_state, shd.param_shardings(
+                    state.opt_state, cfg, mesh), mesh), state.step)
+            dbatch = shd.distribute(batch, shd.to_shardings(shd.batch_specs(
+                cfg, mesh, SHAPES["train_4k"]), mesh), mesh)
+            del state, params
+            _, on_mesh = make_train_step(cfg, microbatches=LAUNCH_MICRO)
+            cap = []
+            saved = _captured_dispatch(moe, cap)
+            try:
+                with M.use_mesh(mesh):
+                    (dnew, m_mesh), rec_mesh = timed(on_mesh, dstate, dbatch)
+            finally:
+                _restore(moe, saved)
+            got = [_full(t) for t in _leaves(dnew.params)]
+            need(len(got) == len(want), "launch: the trees differ")
+            same = [a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(got, want)]
+            diff = max(float((a.double() - b.double()).abs().max())
+                       for a, b in zip(got, want))
+            loss = (float(_full(m_mesh["loss"])), float(m_plain["loss"]))
+            gnorm = (float(_full(m_mesh["grad_norm"])),
+                     float(m_plain["grad_norm"]))
+            need(torch.equal(_full(m_mesh["loss"]), m_plain["loss"]),
+                 f"launch: loss {loss[0]} on the mesh, {loss[1]} off it")
+            need(torch.equal(_full(m_mesh["grad_norm"]),
+                             m_plain["grad_norm"]),
+                 f"launch: gradient norm {gnorm[0]} on the mesh, "
+                 f"{gnorm[1]} off it")
+            need(all(same), f"launch: {same.count(False)} of {len(same)} "
+                 f"parameters differ (max {diff})")
+            census = {k: (rec_mesh[k], rec_plain[k]) for k in (
+                "histogram", "fused_pass", "host_reads")}
+            per = 2 * cfg.n_layers * cfg.dispatch_groups * LAUNCH_MICRO
+            need(rec_mesh["histogram"] == rec_plain["histogram"] == per
+                 and rec_mesh["fused_pass"] == rec_plain["fused_pass"] == per,
+                 f"launch: census (mesh, plain) {census}, expected {per}")
+            del got, want
+            # a second mesh step, timed (from the updated state)
+            with M.use_mesh(mesh):
+                _, rec_mesh2 = timed(on_mesh, dnew, dbatch)
+            del dnew, dstate
+            backend = torch.distributed.get_backend()
+            peak = torch.cuda.max_memory_allocated() - base
+            torch.cuda.empty_cache()
+
+            # (b) compressed_psum over the group
+            gen = torch.Generator(device=dev).manual_seed(5)
+            x = torch.randn((1 << 24) + 7, device=dev, generator=gen)
+            want_x = int8_decompress(*int8_compress(x), x.shape)
+            got_x = compressed_psum(x, (mesh, "data"))
+            need(torch.equal(got_x, want_x),
+                 "launch: compressed_psum differs from the int8 round trip")
+            psum_ms = cuda_ms(torch, lambda: compressed_psum(
+                x, (mesh, "data")), reps)
+            del x, want_x, got_x
+        finally:
+            M.close_group()
+
+        # (d) the kernels at the mesh step's dispatch shape
+        ids, e, capacity = (cap[0][k] for k in ("ids", "e", "capacity"))
+        need(len(cap) == per and ids.numel() == LAUNCH_SEQ * cfg.top_k,
+             f"launch: {len(cap)} dispatches of {ids.numel()} ids")
+        rec = first_pass(torch, lambda: segmented.capacity_dispatch(
+            ids, e, capacity))
+        hist, fused_res = serve_kernels(torch, rec, ids, e, reps,
+                                        "launch_mesh_dispatch")
+        del rec, cap
+        torch.cuda.empty_cache()
+
+        # (c) the dry run
+        dryrun = finish_dryrun(*dry, tmp.name)
+    finally:
+        stop(dry[0])
+        tmp.cleanup()
+    res = {"phase": "launch", "arch": LAUNCH_ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": n_params,
+           "seq_len": LAUNCH_SEQ, "global_batch": LAUNCH_BATCH,
+           "microbatches": LAUNCH_MICRO, "mesh": [1, 1], "backend": backend,
+           "loss": loss[0], "grad_norm": gnorm[0], "loss_equal": True,
+           "grad_norm_equal": True, "params_bitwise_equal": True,
+           "leaves": len(same), "census": {"per_step": per, "mesh_plain":
+                                            census},
+           "plain_step_ms": [rec_plain["ms"], rec_plain2["ms"]],
+           "mesh_step_ms": [rec_mesh["ms"], rec_mesh2["ms"]],
+           "plain_step_wall_ms": [rec_plain["wall_ms"],
+                                  rec_plain2["wall_ms"]],
+           "mesh_step_wall_ms": [rec_mesh["wall_ms"], rec_mesh2["wall_ms"]],
+           "mesh_over_plain": rec_mesh2["ms"] / rec_plain2["ms"],
+           "syncs": {"plain": rec_plain2["syncs"],
+                     "mesh": rec_mesh2["syncs"]},
+           "peak_mem_bytes": peak, "compressed_psum": {
+               "elements": (1 << 24) + 7, "bitwise_equal": True,
+               "ms": psum_ms}, "dryrun": dryrun}
+    emit(res)
+    launches = {"histogram": rec_mesh["histogram"],
+                "fused_pass": rec_mesh["fused_pass"]}
+    src = "src/repro_torch/kernels/csrc/"
+    return [dict(name=name, route="cuda", source=src + cu, replaces=rep,
+                 launches=launches[key], **_k(r), bound_by="bytes",
+                 library_ms=r["library_ms"])
+            for name, key, cu, rep, r in (
+                ("histogram_mesh_dispatch", "histogram", "histogram.cu",
+                 "src/repro/kernels/histogram.py:28", hist),
+                ("fused_pass_mesh_dispatch", "fused_pass", "fused_pass.cu",
+                 "src/repro/kernels/fused.py:129", fused_res))]
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3231,6 +3520,8 @@ def run(args) -> int:
 
     if args.only == "train":
         return finish(torch, run_train(torch, np, args.reps, dev))
+    if args.only == "launch":
+        return finish(torch, run_launch(torch, np, args.reps, dev))
 
     # the serve phase: Qwen3-30B-A3B at full width through ServeEngine (its
     # own counted runs; the 61 GB of parameters freed before the next phase)
@@ -3440,7 +3731,10 @@ def run(args) -> int:
             **_k(lib_res[name]),
             bound_by=lib_res[name].get("bound_by", "bytes"),
             library_ms=lib_res[name]["library_ms"]))
-    kernels += serve_rows + train_rows
+    # the launch phase: the one-rank NCCL mesh step, compressed_psum and
+    # the dry run (its own counted runs)
+    launch_rows = run_launch(torch, np, args.reps, dev)
+    kernels += serve_rows + train_rows + launch_rows
     emit({"phase": "summary", "main_path": "uint32_uniform_kv",
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],
           "torch_sort_ms": main["torch_sort_ms"], "d9_sort_ms": d9["ms"],
@@ -3484,6 +3778,20 @@ def run_train(torch, np, reps, dev):
             for name, (res, launches) in train["kernels"].items()]
 
 
+def run_launch(torch, np, reps, dev):
+    """The launch phase, its launches checked, the card emptied after it;
+    returns its rows of the kernels line."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rows = launch_phase(torch, np, reps, dev)
+    need(all(r["launches"] > 0 for r in rows),
+         f"a kernel of the mesh path was not launched: {rows}")
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_allocated() - before
+    need(kept < (1 << 30), f"launch: {kept} bytes still allocated")
+    return rows
+
+
 def finish(torch, kernels) -> int:
     """The last three lines: the kernels, the card's name and power limit,
     and the result."""
@@ -3506,7 +3814,7 @@ def main(argv=None) -> int:
                         help="log2 of the largest key count (default 28)")
     parser.add_argument("--reps", type=int, default=3,
                         help="timed repetitions per measurement")
-    parser.add_argument("--only", choices=("serve", "train"),
+    parser.add_argument("--only", choices=("serve", "train", "launch"),
                         help="run only this phase (a quick check)")
     args = parser.parse_args(argv)
     try:

@@ -23,6 +23,18 @@ whose backward is the mirror gather through the same tables (autograd's
 own backward of a gather is an accumulating scatter, float atomics on
 CUDA).  The tables are integers and carry no gradient.
 
+On a mesh (``launch.mesh.use_mesh``, DTensor parameters and activations)
+the layer constrains the routing tables to whole tokens on each data
+shard, at the reference's points (``layers.constrain``).  The dispatch
+tables are built under ``local_map``: each data shard's groups are
+partitioned by its own ``capacity_dispatch`` calls on its local tensors
+(on the card the histogram and fused-pass kernels), so a group's counting
+pass stays local to its shard, as the reference's does.  The reference's
+constraints inside the dispatch (groups on their data shards, experts on
+the model axis) become the placements of a second ``local_map``, an
+expert-parallel block (:func:`_experts_on_mesh`).  Off a mesh nothing
+changes.
+
 A GShard-style dense one-hot dispatch is kept as the baseline
 (``moe_dispatch="dense"``): same result, more memory traffic.
 """
@@ -32,9 +44,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core.segmented import capacity_dispatch
-from repro_torch.models.layers import dense_init, normal
+from repro_torch.launch.mesh import model_shards
+from repro_torch.launch.sharding import P, _div, to_placements
+from repro_torch.models.layers import (_ContiguousGrad, abstract_mesh,
+                                       constrain, dense_init, dp_axes, normal)
 
 _F32 = torch.float32
 
@@ -56,15 +74,16 @@ def _route(x_flat, router, top_k: int):
     ``torch.topk`` does not promise that order)."""
     logits = x_flat.to(_F32) @ router                      # (T, E)
     probs = torch.softmax(logits, dim=-1)
+    probs = constrain(probs, P(dp_axes(), None))            # token-sharded top_k
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = srt.values[:, :top_k], srt.indices[:, :top_k]
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     # load-balancing auxiliary (Switch-style)
     t, e = probs.shape
-    # counted with a scatter: ``torch.bincount`` reads its maximum back
-    top1 = torch.zeros(e, dtype=torch.int32, device=probs.device)
-    top1.scatter_add_(0, ids[:, 0], torch.ones_like(ids[:, 0],
-                                                    dtype=torch.int32))
+    # counted by comparison (``torch.bincount`` reads its maximum back; a
+    # scatter into a fresh tensor cannot take a sharded DTensor's ids)
+    top1 = (ids[:, :1] == torch.arange(e, device=probs.device)).sum(
+        0, dtype=torch.int32)
     frac_tokens = top1.to(_F32) / t
     frac_probs = probs.mean(dim=0)
     aux = e * torch.sum(frac_tokens * frac_probs)
@@ -87,6 +106,26 @@ def _dispatch_tables(flat_ids, e: int, capacity: int,
            for row in flat_ids]
     return tuple(torch.stack(f) for f in zip(*[
         (cd.gather_idx, cd.slot_valid, cd.position, cd.kept) for cd in cds]))
+
+
+def _tables_on_mesh(flat_ids, e: int, capacity: int,
+                    engine: Optional[str] = None):
+    """:func:`_dispatch_tables` of (G, m) ids; on a mesh under
+    ``local_map``, each rank partitioning the groups of its data shard
+    (every group, replicated, when G does not divide over the data
+    axes)."""
+    mesh = abstract_mesh()
+    if mesh is None or not isinstance(flat_ids, DTensor):
+        return _dispatch_tables(flat_ids, e, capacity, engine)
+    dp = dp_axes()
+    split = bool(dp) and _div(flat_ids.shape[0], mesh, dp)
+    rows = to_placements(P(dp, None) if split else P(), mesh)
+    cube = to_placements(P(dp, None, None) if split else P(), mesh)
+    fn = local_map(lambda ids: _dispatch_tables(ids, e, capacity, engine),
+                   out_placements=(cube, cube, rows, rows),
+                   in_placements=(rows,), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(flat_ids)
 
 
 def _gather_rows(src, idx, valid):
@@ -146,17 +185,93 @@ def _sort_dispatch(xg, ids, wts, params, e: int, capacity: int,
     g, tg, k = ids.shape
     m = tg * k
     flat_ids = ids.reshape(g, m)
-    gather_idx, slot_valid, position, kept = _dispatch_tables(
+    gather_idx, slot_valid, position, kept = _tables_on_mesh(
         flat_ids, e, capacity, engine)
     src = torch.clamp(gather_idx, max=m - 1).long()              # (G,E,C)
     slot = torch.where(kept, flat_ids.long() * capacity + position.long(), 0)
-    buf = _Dispatch.apply(xg, src, slot_valid, slot, kept, k)    # (G,E,C,d)
-    out = _expert_ffn(buf, params)                               # (G,E,C,d)
+    return _experts_on_mesh(xg, src, slot_valid, slot, kept, wts, params, k)
 
+
+def _experts(xg, src, slot_valid, slot, kept, wts, w_gate, w_up, w_down,
+             k: int, first: int = 0):
+    """Dispatch, expert FFN and combine for the experts ``first ..`` that
+    ``w_gate`` holds (all of them off a mesh): (G, Tg, d), each token the
+    weighted sum of its kept slots among those experts."""
+    g, tg = xg.shape[:2]
+    m = tg * k
+    el, c = w_gate.shape[0], src.shape[2]
+    if el != src.shape[1]:              # one model shard's experts
+        lo = first * c
+        src = src[:, first:first + el]
+        slot_valid = slot_valid[:, first:first + el]
+        kept = kept & (slot >= lo) & (slot < lo + el * c)
+        slot = torch.where(kept, slot - lo, 0)
+    buf = _Dispatch.apply(xg, src, slot_valid, slot, kept, k)    # (G,E,C,d)
+    out = _expert_ffn(buf, {"w_gate": w_gate, "w_up": w_up,
+                            "w_down": w_down})                   # (G,E,C,d)
     # combine: each token's k slots gathered back and summed over k
     picked = _Combine.apply(out, slot, kept, src, slot_valid)    # (G,m,d)
     w = wts.reshape(g, m)[..., None].to(out.dtype)
     return (picked * w).reshape(g, tg, k, -1).sum(dim=2)         # (G,Tg,d)
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The model-axis sum of each rank's experts' partial combine (an
+    all-reduce); its backward hands every rank the whole gradient (the sum
+    feeds computation replicated over the axis)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _experts_on_mesh(xg, src, slot_valid, slot, kept, wts, params, k: int):
+    """:func:`_experts`; on a bound mesh under ``local_map``, as an
+    expert-parallel block: each rank dispatches its data shard's groups to
+    the experts its model shard holds (a gather of replicated tokens: no
+    wire), runs them, combines their share of each token and sums the
+    shares over the model axis (one all-reduce of (G, Tg, d), the
+    reference's combine wire).  Experts the model axis does not divide
+    run whole on every rank."""
+    ws = (params["w_gate"], params["w_up"], params["w_down"])
+    am = abstract_mesh()
+    if am is None or not isinstance(xg, DTensor):
+        return _experts(xg, src, slot_valid, slot, kept, wts, *ws, k)
+    dp = dp_axes() if _div(xg.shape[0], am, dp_axes()) else ()
+    n_model = model_shards(am)
+    split = n_model > 1 and _div(ws[0].shape[0], am, "model")
+    rows = to_placements(P(dp), am)
+    names = list(am.mesh_dim_names)
+    mdim = names.index("model")
+    wpl = to_placements(P("model" if split else None), am)
+    # gradients: a token's and a routing weight's are partial over the
+    # model axis when each rank holds only some experts; an expert
+    # weight's partial over the data axes (each shard's own tokens)
+    part = lambda pl, dims: tuple(  # noqa: E731
+        Partial() if j in dims else p for j, p in enumerate(pl))
+    dp_dims = [names.index(a) for a in dp_axes()]
+    row_grad = part(rows, [mdim] if split else [])
+    w_grad = part(wpl, dp_dims)
+    first = am.get_local_rank("model") * (ws[0].shape[0] // n_model) \
+        if split else 0
+    group = am.get_group("model")
+
+    def body(xl, sl, vl, tl, kl, wl, *wsl):
+        xl, wl = _ContiguousGrad.apply(xl), _ContiguousGrad.apply(wl)
+        wsl = [_ContiguousGrad.apply(t) for t in wsl]
+        out = _experts(xl, sl, vl, tl, kl, wl, *wsl, k, first)
+        return _SumOverModel.apply(out, group) if split else out
+    return local_map(
+        body, out_placements=(rows,),
+        in_placements=(rows,) * 6 + (wpl,) * 3,
+        in_grad_placements=(row_grad,) + (rows,) * 4 + (row_grad,)
+        + (w_grad,) * 3,
+        device_mesh=am, redistribute_inputs=True)(
+            xg, src, slot_valid, slot, kept, wts, *ws)
 
 
 def _group_dispatch_dense(xg, ids, wts, params, e: int, capacity: int):
@@ -184,8 +299,14 @@ def moe_layer(params, x, cfg, *, groups: int = 1,
     b, s, d = x.shape
     t = b * s
     g = groups if t % groups == 0 else 1
+    dp = dp_axes()
+    # tokens whole on each data shard: DTensor cannot fold a
+    # sequence-sharded stream into groups (a strided shard)
+    x = constrain(x, P(dp, None, None))
     x_flat = x.reshape(t, d)
     wts, ids, aux = _route(x_flat, params["router"], cfg.top_k)
+    wts = constrain(wts, P(dp, None))      # keep routing tables token-sharded
+    ids = constrain(ids, P(dp, None))
     tg = t // g
     capacity = max(4, int(cfg.capacity_factor * tg * cfg.top_k
                           / cfg.num_experts))
@@ -201,7 +322,9 @@ def moe_layer(params, x, cfg, *, groups: int = 1,
             _group_dispatch_dense(xg[i], ids_g[i], wts_g[i], params,
                                   cfg.num_experts, capacity)
             for i in range(g)])
-    return out.reshape(b, s, d), aux
+    # whole tokens per data shard on the way back too (the gradient of a
+    # sequence-sharded stream cannot be unfolded into groups)
+    return constrain(out.reshape(b, s, d), P(dp, None, None)), aux
 
 
 # --- contract declaration, as data (the reference's, at the port's entry)

@@ -7,6 +7,13 @@ are attention-like masked contractions, cross-chunk terms propagate a
 chunks, here a Python loop).  The four-operand contractions go through
 ``torch.einsum``, whose contraction order differs from XLA's: results agree
 with the reference to float32 rounding, not bit for bit.
+
+On a mesh (``launch.mesh.use_mesh``) the projections are DTensor products
+and the scan between them runs under ``local_map`` (``layers.
+local_on_mesh``): each rank scans its data shard's sequences with every
+head, the projection gathered whole over the model axis (the rules shard
+``in_proj`` over it only where the columns divide, and the scan's
+head-mixing contractions are not ones DTensor can split).
 """
 from __future__ import annotations
 
@@ -15,7 +22,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, normal, rms_norm
+from repro_torch.models.layers import (dense_init, local_on_mesh, normal,
+                                       rms_norm)
 
 _F32 = torch.float32
 CONV_K = 4  # short depthwise causal conv window (mamba standard)
@@ -83,19 +91,40 @@ def ssm_forward(params, x, cfg, return_cache: bool = False):
     pad = (-s_orig) % q
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
-    b, s, _ = x.shape
-    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    nc = s // q
-
     proj = x @ params["in_proj"]
+    y, state, conv_tail = local_on_mesh(
+        lambda *t: _ssd(*t, cfg=cfg, cache=return_cache and not pad),
+        (proj, *(params[k] for k in _CORE)), rows=1, outs=3)
+    out = y @ params["out_proj"]
+    out = out[:, :s_orig] if pad else out
+    if not return_cache:
+        return out
+    # exact state handoff needs no tail padding (pad positions would apply
+    # spurious decay); prefill shapes are chunk-aligned by construction
+    assert pad == 0 and s_orig >= CONV_K - 1, "prefill must be chunk-aligned"
+    return out, SSMCache(state=state, conv=conv_tail)
+
+
+#: the scan's parameters (whole on every rank on a mesh)
+_CORE = ("conv_w", "dt_bias", "A_log", "D", "norm_w")
+
+
+def _ssd(proj, conv_w, dt_bias, a_log, d_skip, norm_w, *, cfg, cache):
+    """The chunked scan from the input projection (B, S, 2di+2n+h) to the
+    normed output (B, S, di), and (when ``cache``) the final state and the
+    conv inputs' tail; otherwise those two are empty."""
+    b, s, _ = proj.shape
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    q = min(cfg.ssm_chunk, s)
+    nc = s // q
     z, xbc, dt = _split_proj(proj, cfg)
     xbc_raw = xbc                      # pre-conv inputs feed the decode cache
-    xbc = _causal_conv(xbc, params["conv_w"])
+    xbc = _causal_conv(xbc, conv_w)
     xin = xbc[..., :di].reshape(b, s, h, p)
     bmat = xbc[..., di:di + n]                          # (B, S, N) one group
     cmat = xbc[..., di + n:]
-    dt = F.softplus(dt.to(_F32) + params["dt_bias"])    # (B, S, H)
-    a = -torch.exp(params["A_log"])                     # (H,)
+    dt = F.softplus(dt.to(_F32) + dt_bias)              # (B, S, H)
+    a = -torch.exp(a_log)                               # (H,)
     da = dt * a                                         # (B, S, H)
 
     # chunk views
@@ -118,7 +147,7 @@ def ssm_forward(params, x, cfg, return_cache: bool = False):
                           b_c, dt_c * decay_states, xin_c)
     chunk_decay = torch.exp(cum[:, :, -1, :])               # (B,NC,H)
 
-    state = torch.zeros((b, h, p, n), dtype=_F32, device=x.device)
+    state = torch.zeros((b, h, p, n), dtype=_F32, device=proj.device)
     prev = []
     for c in range(nc):
         prev.append(state)
@@ -128,49 +157,53 @@ def ssm_forward(params, x, cfg, return_cache: bool = False):
     y_inter = torch.einsum("bcin,bchpn,bcih->bcihp",
                            c_c, prev_states, torch.exp(cum))
     y = (y_intra + y_inter).reshape(b, s, h, p)
-    y = y + params["D"][None, None, :, None] * xin.to(_F32)
-    y = y.reshape(b, s, di).to(x.dtype)
+    y = y + d_skip[None, None, :, None] * xin.to(_F32)
+    y = y.reshape(b, s, di).to(proj.dtype)
 
     y = y * F.silu(z)
-    y = rms_norm(y, params["norm_w"].to(x.dtype), cfg.rms_eps)
-    out = y @ params["out_proj"]
-    out = out[:, :s_orig] if pad else out
-    if not return_cache:
-        return out
-    # exact state handoff needs no tail padding (pad positions would apply
-    # spurious decay); prefill shapes are chunk-aligned by construction
-    assert pad == 0 and s_orig >= CONV_K - 1, "prefill must be chunk-aligned"
-    conv_tail = xbc_raw[:, s_orig - (CONV_K - 1): s_orig, :]
-    return out, SSMCache(state=state, conv=conv_tail)
+    y = rms_norm(y, norm_w.to(proj.dtype), cfg.rms_eps)
+    if not cache:
+        return y, state[:0], xbc_raw[:0]
+    return y, state, xbc_raw[:, s - (CONV_K - 1):, :]
 
 
 def ssm_decode_step(params, x, cache: SSMCache, cfg):
     """One-token step. x: (B, 1, d); O(1) state update (no KV growth)."""
-    b = x.shape[0]
-    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     proj = x[:, 0] @ params["in_proj"]
+    y, state, new_conv = local_on_mesh(
+        lambda *t: _ssd_step(*t, cfg=cfg),
+        (proj, cache.state, cache.conv, *(params[k] for k in _CORE)),
+        rows=3, outs=3)
+    out = (y @ params["out_proj"])[:, None, :]
+    return out, SSMCache(state=state, conv=new_conv)
+
+
+def _ssd_step(proj, state, conv, conv_w, dt_bias, a_log, d_skip, norm_w, *,
+              cfg):
+    """One token of the scan: (normed output (B, di), state, conv tail)."""
+    b = proj.shape[0]
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xbc, dt = _split_proj(proj, cfg)
 
-    conv_in = torch.cat([cache.conv, xbc[:, None, :]], dim=1)   # (B, K, C)
-    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, params["conv_w"]))
+    conv_in = torch.cat([conv, xbc[:, None, :]], dim=1)         # (B, K, C)
+    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, conv_w))
     new_conv = conv_in[:, 1:, :]
 
     xin = xbc[..., :di].reshape(b, h, p).to(_F32)
     bvec = xbc[..., di:di + n].to(_F32)
     cvec = xbc[..., di + n:].to(_F32)
-    dt = F.softplus(dt.to(_F32) + params["dt_bias"])    # (B, H)
-    a = -torch.exp(params["A_log"])
+    dt = F.softplus(dt.to(_F32) + dt_bias)              # (B, H)
+    a = -torch.exp(a_log)
     da = torch.exp(dt * a)                              # (B, H)
 
     upd = torch.einsum("bh,bhp,bn->bhpn", dt, xin, bvec)
-    state = cache.state * da[:, :, None, None] + upd
+    state = state * da[:, :, None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", state, cvec)
-    y = y + params["D"][None, :, None] * xin
-    y = y.reshape(b, di).to(x.dtype)
+    y = y + d_skip[None, :, None] * xin
+    y = y.reshape(b, di).to(proj.dtype)
     y = y * F.silu(z)
-    y = rms_norm(y, params["norm_w"].to(x.dtype), cfg.rms_eps)
-    out = (y @ params["out_proj"])[:, None, :]
-    return out, SSMCache(state=state, conv=new_conv)
+    y = rms_norm(y, norm_w.to(proj.dtype), cfg.rms_eps)
+    return y, state, new_conv
 
 
 def init_ssm_cache(cfg, batch: int, dtype, device=None):

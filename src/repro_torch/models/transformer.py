@@ -34,6 +34,9 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
@@ -41,6 +44,8 @@ from repro_torch.core.interop import resolve_device, to_tensor
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.launch.mesh import model_shards
+from repro_torch.launch.sharding import P, _div, to_placements
 
 _F32 = torch.float32
 _ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
@@ -83,9 +88,11 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     drawn from ``generator`` (a ``torch.Generator`` on ``device``; seed 0
     when omitted).  ``device`` is the GPU unless the caller says otherwise;
     without one this raises.  The draws cannot match ``jax.random``:
-    carry the reference's own parameters with ``params_from_reference``."""
+    carry the reference's own parameters with ``params_from_reference``.
+    On the ``meta`` device nothing is drawn: the tree holds the shapes and
+    dtypes only (the dry run's stand-ins)."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = torch_dtype(cfg)
     v, d = cfg.padded_vocab, cfg.d_model
@@ -133,6 +140,24 @@ def _windows(cfg) -> List[int]:
 
 def cfg_groups(cfg) -> int:
     return cfg.dispatch_groups
+
+
+def _stream(x):
+    """The residual stream whole on each model rank: after a sub-layer's
+    add (the reduction of a row-parallel product's partial sums, as a
+    Megatron block all-reduces it) and where a block or the head reads a
+    sequence-sharded carry (``_seq_shard``).  A no-op off a mesh."""
+    return L.constrain(x, P(L.dp_axes(), None, None))
+
+
+def _seq_shard(x, cfg):
+    """Sequence-parallel residual stream (Korthikanti et al.): the carry
+    between blocks is sharded over the model axis on the sequence dim, so
+    remat checkpoints cost 1/|model| of the replicated layout; the next
+    block gathers it whole (``_stream``).  A no-op off a mesh."""
+    if not cfg.seq_shard_activations or x.shape[1] % 2:
+        return x
+    return L.constrain(x, P(L.dp_axes(), "model", None))
 
 
 # ----------------------------- forward --------------------------------------
@@ -185,18 +210,20 @@ def _block_fwd(bp, x, cfg, window, positions, engine=None, sub=_call):
     """One block; ``sub`` runs each sub-layer (``_recompute`` for the
     ``save_block_io`` policy, which keeps the sub-layers' outputs)."""
     aux = torch.zeros((), dtype=_F32, device=x.device)
+    bp = L.gather_data_shards(bp)
+    x = _stream(x)             # a sequence-sharded carry, whole again
     if cfg.family in _ATTN_FAMILIES:
-        x = x + sub(_attn_sub, bp, x, cfg, window, positions)
+        x = _stream(x + sub(_attn_sub, bp, x, cfg, window, positions))
         m, a = sub(_ffn_sub, bp, x, cfg, engine)
-        x = x + m
+        x = _stream(x + m)
         if a is not None:
             aux = a
     elif cfg.family == "ssm":
-        x = x + sub(_ssm_sub, bp, x, cfg)
+        x = _stream(x + sub(_ssm_sub, bp, x, cfg))
     elif cfg.family == "hybrid":
-        x = x + sub(_mix_sub, bp, x, cfg, window, positions)
-        x = x + sub(_mlp_sub, bp, x, cfg)
-    return x, aux
+        x = _stream(x + sub(_mix_sub, bp, x, cfg, window, positions))
+        x = _stream(x + sub(_mlp_sub, bp, x, cfg))
+    return _seq_shard(x, cfg), aux
 
 
 def _embed_inputs(params, cfg, batch):
@@ -231,8 +258,62 @@ def forward(params, cfg, batch, *, remat: bool = False,
             x, a = _block_fwd(bp, x, cfg, w, positions, engine,
                               _recompute if per_sub else _call)
         aux = aux + a
-    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    x = L.rms_norm(_stream(x), params["final_norm"], cfg.rms_eps)
     return _head(params, cfg, x), aux
+
+
+class _VocabCE(torch.autograd.Function):
+    """Each token's ``logz - gold`` from one model rank's vocab slice of
+    the float32 logits (B, S, V_l), whose first id is ``first``: the row
+    max, the sum of exponentials and the gold logit reduced over the
+    model axis (``group``, None on one rank), the gold one by the
+    reference's masked sum.  The backward is local and takes autograd's
+    steps on the plain form in its order (log, sum, exp; the gold term's
+    negated gradient at the target), so one rank gives the same bits."""
+
+    @staticmethod
+    def forward(ctx, lf, targets, first, group):
+
+        def reduce(t, op):
+            if group is None:
+                return t
+            return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+        m = reduce(lf.amax(dim=-1, keepdim=True), "max")
+        z = torch.exp(lf - m)
+        sumexp = reduce(torch.sum(z, dim=-1), "sum")
+        logz = torch.log(sumexp) + m[..., 0]
+        vocab = first + torch.arange(lf.shape[-1], device=lf.device)
+        hit = targets[..., None] == vocab
+        gold = reduce(torch.where(hit, lf, 0.0).sum(dim=-1), "sum")
+        ctx.save_for_backward(z, sumexp, hit)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        z, sumexp, hit = ctx.saved_tensors
+        d_logz = (g / sumexp)[..., None] * z
+        d_gold = torch.where(hit, -g[..., None], 0.0)
+        return d_logz + d_gold, None, None, None
+
+
+def _vocab_parallel_ce(lf, targets):
+    """``logz - gold`` per token of DTensor logits under ``local_map``: the
+    vocab axis stays sharded over the model axis (a Megatron vocab-parallel
+    cross-entropy: three (B, S) all-reduces forward, none backward)."""
+    am = L.abstract_mesh()
+    dp = L.dp_axes()
+    dp = dp if dp and _div(lf.shape[0], am, dp) else None
+    split = _div(lf.shape[-1], am, "model") and model_shards(am) > 1
+    lpl = to_placements(P(dp, None, "model" if split else None), am)
+    rows = to_placements(P(dp, None), am)
+    first = am.get_local_rank("model") * (lf.shape[-1] // model_shards(am)) \
+        if split else 0
+    group = am.get_group("model") if split else None
+    return local_map(
+        lambda lf_l, t_l: _VocabCE.apply(lf_l, t_l, first, group),
+        out_placements=(rows,), in_placements=(lpl, rows),
+        in_grad_placements=(lpl, rows), device_mesh=am,
+        redistribute_inputs=True)(lf, targets)
 
 
 def loss_fn(params, cfg, batch, *, remat: bool = True,
@@ -245,10 +326,13 @@ def loss_fn(params, cfg, batch, *, remat: bool = True,
     n_prefix = logits.shape[1] - tokens.shape[1]           # vlm patch positions
     lf = logits[:, n_prefix:, :][:, :-1, :].to(_F32)
     targets = tokens[:, 1:].long()
-    m = lf.amax(dim=-1, keepdim=True).detach()
-    logz = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    gold = torch.gather(lf, -1, targets[..., None])[..., 0]
-    ce = torch.mean(logz - gold)
+    if isinstance(lf, DTensor):
+        ce = torch.mean(_vocab_parallel_ce(lf, targets))
+    else:
+        m = lf.amax(dim=-1, keepdim=True).detach()
+        logz = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+        gold = torch.gather(lf, -1, targets[..., None])[..., 0]
+        ce = torch.mean(logz - gold)
     return ce + 0.01 * aux / cfg.n_layers, {"ce": ce, "aux": aux}
 
 
@@ -287,31 +371,34 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None,
 def _block_prefill(bp, x, cfg, window, positions):
     """Like _block_fwd but collects the per-layer decode cache."""
     kv = ssm_c = None
+    bp = L.gather_data_shards(bp)
+    x = _stream(x)
     if cfg.family in _ATTN_FAMILIES:
         h, kv = L.attention(bp["attn"], L.rms_norm(x, bp["attn_norm"],
                                                    cfg.rms_eps),
                             cfg, positions=positions, window=window)
-        x = x + h
+        x = _stream(x + h)
         y = L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps)
         if cfg.is_moe:
             m, _ = MOE.moe_layer(bp["moe"], y, cfg, groups=cfg_groups(cfg))
-            x = x + m
+            x = _stream(x + m)
         else:
-            x = x + L.mlp(bp["mlp"], y)
+            x = _stream(x + L.mlp(bp["mlp"], y))
     elif cfg.family == "ssm":
         h, ssm_c = SSM.ssm_forward(bp["ssm"], L.rms_norm(x, bp["norm"],
                                                          cfg.rms_eps),
                                    cfg, return_cache=True)
-        x = x + h
+        x = _stream(x + h)
     elif cfg.family == "hybrid":
         y = L.rms_norm(x, bp["in_norm"], cfg.rms_eps)
         a, kv = L.attention(bp["attn"], y, cfg, positions=positions,
                             window=window)
         s, ssm_c = SSM.ssm_forward(bp["ssm"], y, cfg, return_cache=True)
-        x = x + (bp["b_attn"] * a.to(_F32)
-                 + bp["b_ssm"] * s.to(_F32)).to(x.dtype)
-        x = x + L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps))
-    return x, kv, ssm_c
+        x = _stream(x + (bp["b_attn"] * a.to(_F32)
+                         + bp["b_ssm"] * s.to(_F32)).to(x.dtype))
+        x = _stream(x + L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"],
+                                                    cfg.rms_eps)))
+    return _seq_shard(x, cfg), kv, ssm_c
 
 
 def prefill(params, cfg, batch, *, max_len: int = 0):
@@ -328,12 +415,15 @@ def prefill(params, cfg, batch, *, max_len: int = 0):
         x, kv, ssm_c = _block_prefill(bp, x, cfg, w, positions)
         kvs.append(kv)
         ssms.append(ssm_c)
-    x = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.rms_eps)
+    x = L.rms_norm(_stream(x)[:, -1:, :], params["final_norm"], cfg.rms_eps)
     logits = _head(params, cfg, x)
 
     kv_k = kv_v = ssm_state = ssm_conv = None
     if cfg.has_attention:
-        grow = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))  # noqa: E731
+        # (no pad when the cache is exactly the prompt: a zero pad of a
+        # DTensor trips an older DTensor's redistribution planner)
+        grow = lambda t: torch.nn.functional.pad(  # noqa: E731
+            t, (0, 0, 0, 0, 0, pad)) if pad else t
         kv_k = tuple(grow(k) for k, _ in kvs)
         kv_v = tuple(grow(v) for _, v in kvs)
     if cfg.has_ssm:
@@ -347,6 +437,7 @@ def prefill(params, cfg, batch, *, max_len: int = 0):
 def _block_decode(bp, x, cfg, window, cache_sl, length, engine):
     """One layer, one token. cache_sl: this layer's cache tensors."""
     kv_k, kv_v, s_state, s_conv = cache_sl
+    bp = L.gather_data_shards(bp)
     positions = torch.full((x.shape[0], 1), length, dtype=torch.int32,
                            device=x.device)
     if cfg.family in _ATTN_FAMILIES:
@@ -355,20 +446,20 @@ def _block_decode(bp, x, cfg, window, cache_sl, length, engine):
                                   cfg, positions=positions,
                                   kv_cache=(kv_k, kv_v), cache_len=length,
                                   window=window)
-        x = x + h
+        x = _stream(x + h)
         y = L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps)
         if cfg.is_moe:
             m, _ = MOE.moe_layer(bp["moe"], y, cfg, groups=cfg_groups(cfg),
                                  engine=engine)
-            x = x + m
+            x = _stream(x + m)
         else:
-            x = x + L.mlp(bp["mlp"], y)
+            x = _stream(x + L.mlp(bp["mlp"], y))
         return x, (nk, nv, s_state, s_conv)
     if cfg.family == "ssm":
         h, nc = SSM.ssm_decode_step(bp["ssm"],
                                     L.rms_norm(x, bp["norm"], cfg.rms_eps),
                                     SSM.SSMCache(s_state, s_conv), cfg)
-        return x + h, (kv_k, kv_v, nc.state, nc.conv)
+        return _stream(x + h), (kv_k, kv_v, nc.state, nc.conv)
     if cfg.family == "hybrid":
         y = L.rms_norm(x, bp["in_norm"], cfg.rms_eps)
         a, (nk, nv) = L.attention(bp["attn"], y, cfg, positions=positions,
@@ -376,9 +467,10 @@ def _block_decode(bp, x, cfg, window, cache_sl, length, engine):
                                   window=window)
         s, nc = SSM.ssm_decode_step(bp["ssm"], y,
                                     SSM.SSMCache(s_state, s_conv), cfg)
-        x = x + (bp["b_attn"] * a.to(_F32)
-                 + bp["b_ssm"] * s.to(_F32)).to(x.dtype)
-        x = x + L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"], cfg.rms_eps))
+        x = _stream(x + (bp["b_attn"] * a.to(_F32)
+                         + bp["b_ssm"] * s.to(_F32)).to(x.dtype))
+        x = _stream(x + L.mlp(bp["mlp"], L.rms_norm(x, bp["ffn_norm"],
+                                                    cfg.rms_eps)))
         return x, (nk, nv, nc.state, nc.conv)
     raise ValueError(cfg.family)
 

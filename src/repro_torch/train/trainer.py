@@ -26,6 +26,7 @@ import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                     restore_checkpoint)
@@ -103,13 +104,19 @@ def make_train_step(cfg, optimizer_name: Optional[str] = None,
 
 
 def _grads(params):
-    """The ``.grad`` tree of ``params`` (zeros where a leaf got none)."""
+    """The ``.grad`` tree of ``params`` (zeros where a leaf got none).  A
+    DTensor parameter's gradient takes the parameter's placements (its
+    partial sums reduced, its shards cut), as the reference's gradients
+    take the parameters' shardings."""
     if isinstance(params, dict):
         return {k: _grads(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(_grads(v) for v in params)
-    return params.grad if params.grad is not None \
+    g = params.grad if params.grad is not None \
         else torch.zeros_like(params)
+    if isinstance(g, DTensor) and g.placements != params.placements:
+        g = g.redistribute(params.device_mesh, params.placements)
+    return g
 
 
 @dataclasses.dataclass

@@ -1676,3 +1676,72 @@ def test_checkpoint_round_trip_of_cuda_bf16(dev, tmp_path):
     ck.wait()
     back = restore_checkpoint(str(tmp_path / "b"), 2, like)
     assert torch.equal(back["w"].view(torch.int16), old.view(torch.int16))
+
+
+def _mesh_smoke_step(cfg, dev, mesh=None):
+    """One train step of a smoke config from a seed (lr > 0), plain or
+    with DTensor state placed by the sharding rules on ``mesh``; returns
+    (loss, grad norm, updated parameters) as plain tensors."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.core.interop import tree_flatten
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import init_params
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train import TrainState, make_train_step
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                         device=dev)
+    state = TrainState(params, get_optimizer(cfg.optimizer).init(params),
+                       torch.ones((), dtype=torch.int32, device=dev))
+    tok = np.random.default_rng(6).integers(0, cfg.vocab, (4, 32))
+    batch = {"tokens": torch.from_numpy(tok.astype(np.int32)).to(dev)}
+    _, step = make_train_step(cfg, microbatches=2)
+    if mesh is None:
+        new, m = step(state, batch)
+    else:
+        place = lambda t: shd.distribute(  # noqa: E731
+            t, shd.param_shardings(t, cfg, mesh), mesh)
+        state = TrainState(place(state.params), place(state.opt_state),
+                           state.step)
+        batch = shd.distribute(batch, shd.to_shardings(shd.batch_specs(
+            cfg, mesh, SHAPES["train_4k"]), mesh), mesh)
+        with M.use_mesh(mesh):
+            new, m = step(state, batch)
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+    return (full(m["loss"]), full(m["grad_norm"]),
+            [full(t) for t in tree_flatten(new.params)[0]])
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "internlm2_1_8b",
+                                  "hymba_1_5b"])
+def test_one_rank_nccl_mesh_step_on_card_is_bit_equal(dev, arch):
+    """A smoke train step on a one-rank NCCL ``DeviceMesh`` (1, 1) with
+    DTensor state: loss, gradient norm and every parameter bit-equal to
+    the plain step on the card, with the same dispatch launches; and
+    ``compressed_psum`` over the group bit-equal to the int8 round trip."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim import (compressed_psum, int8_compress,
+                                   int8_decompress)
+    cfg = get_smoke_config(arch)
+    torch.cuda.synchronize()
+    reset_counts()
+    want = _mesh_smoke_step(cfg, dev)
+    plain_counts = dict(COUNTS)
+    M.open_group(device_type="cuda")
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        reset_counts()
+        got = _mesh_smoke_step(cfg, dev, mesh)
+        assert dict(COUNTS) == plain_counts
+        x = torch.randn(5000, device=dev)
+        assert torch.equal(compressed_psum(x, (mesh, "model")),
+                           int8_decompress(*int8_compress(x), x.shape))
+    finally:
+        M.close_group()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, b in zip(got[2], want[2]):
+        assert a.device.type == "cuda" and torch.equal(a, b)

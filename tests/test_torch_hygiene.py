@@ -58,7 +58,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.moe, repro_torch.models.ssm, "
             "repro_torch.serve, repro_torch.optim, repro_torch.train, "
-            "repro_torch.launch.train, repro_torch.checkpoint\n"
+            "repro_torch.launch.train, repro_torch.checkpoint, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.dryrun, repro_torch.utils, "
+            "repro_torch.utils.roofline, repro_torch.utils.collectives, "
+            "repro_torch.optim.compression\n"
             "import repro_torch.configs as c\n"
             "[c.get_config(a) for a in c.ARCHS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
