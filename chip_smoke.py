@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together) and drives eight paths of
+(one ``nvcc`` per source, all started together) and drives nine paths of
 the port, each with the launch counters set to 0 just before it and read
 just after:
 
@@ -138,6 +138,17 @@ just after:
   records byte-equal to ``LocalMesh(1)``; ``length_bucketed_batches`` on
   2^20 lengths by its host, ``ooc`` and ``dist`` routes, each a valid
   packing equal to the host route's;
+* the contract layer (its ``analysis`` phase, before the launch path):
+  ``repro_torch.analysis.run_all`` with the CUDA kernels (the reference's
+  ten contracts and the descriptor tables, each run under the launch
+  recorder, the sort counter and ``torch.profiler``, the first fused and
+  merge launch replayed with an ``arange`` leaf) and the lint, then the
+  main path at full size, 2^28 uint32 keys with int32 values at (4,0),
+  counted and recorded: the census ``2 + classes`` with ``1 + passes +
+  classes`` launches, each kernel's launches equal to the profiler's and
+  to the counters, no sort op, the alternates written in place, the sweep
+  bytes exactly ``(2p + 1)·n_pad·4 + 2p·n_pad·4``, the result equal to
+  ``torch.sort(stable=True)``;
 * the out-of-core path, ``repro_torch.oocsort``, on 2^30 uint32 keys with an
   int32 index value (8 GiB of 8-byte records) in chunks of 2^28, kway 4,
   tile 4096 (4 runs, one merge round): ``merge_check`` holds the merge
@@ -163,7 +174,9 @@ no result.
 chunks of 2^log2n, the spill budget 2^(log2n + 6) bytes, the library
 inputs 2^log2n keys): a quick check;
 ``--reps`` sets the timed repetitions; ``--only serve`` / ``--only
-train`` / ``--only launch`` runs that phase alone.  None is needed for the full run, which runs every phase at
+train`` / ``--only launch`` / ``--only analysis`` runs that phase alone
+(``analysis`` then holds the main path's histogram, fused pass, local
+sort and ``merge_rows`` to their plain versions for the kernels line).  None is needed for the full run, which runs every phase at
 full size.
 """
 from __future__ import annotations
@@ -3504,6 +3517,173 @@ def launch_phase(torch, np, reps, dev):
                 ("fused_pass_mesh_dispatch", "fused_pass", "fused_pass.cu",
                  "src/repro/kernels/fused.py:129", fused_res))]
 
+# --------------------------------------------------------------------------
+# the contract layer (repro_torch.analysis) on the card
+# --------------------------------------------------------------------------
+
+#: the main path's launch counters under the recorder's kernel names
+ANALYSIS_KERNELS = {"histogram": "_hist_kernel",
+                    "fused_pass": "_fused_pass_kernel",
+                    "local_sort": "_bitonic_stable_kernel",
+                    "merge_rows": "merge_rows"}
+
+
+def analysis_phase(torch, np, log2n, dev):
+    """Every registered contract with the CUDA kernels (``run_all``, each
+    under the recorder, the sort counter, the write replays and
+    ``torch.profiler``) and the lint; then the main path at full size, the
+    2^log2n uint32 KV ``hybrid_sort`` at Table 3's (4,0) config, counted,
+    under the recorder, the sort counter and the profiler: census ``2 +
+    classes`` with ``1 + passes + classes`` launches, the recorder's counts
+    equal to the profiler's kernel by kernel (and to the launch counters),
+    no sort op, the alternates written in place, the key and value sweep
+    bytes exactly ``(2p + 1)·n_pad·4 + 2p·n_pad·4``, and the result equal
+    to ``torch.sort(stable=True)``."""
+    from repro_torch import hybrid_sort
+    from repro_torch.analysis import contracts, lint, transfer
+    from repro_torch.analysis.trace import recording
+    from repro_torch.core import hybrid, model
+    from repro_torch.kernels import COUNTS, fused, reset_counts
+    from repro_torch.utils.census import (SortCounter, launch_census,
+                                          profiler_kernel_counts)
+    t0 = time.perf_counter()
+    reports = contracts.run_all(dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    bad = [f for r in reports for f in r.findings]
+    lint_findings = [str(f) for f in lint.run_lint(
+        os.path.join(HERE, "src", "repro_torch"))]
+    emit({"phase": "analysis_contracts", "device": "cuda",
+          "seconds": sweep_s, "contracts": {r.name: r.ok for r in reports},
+          "findings": bad, "lint": lint_findings})
+    need(not bad, f"analysis: {len(bad)} finding(s): {bad[:5]}")
+    need(not lint_findings, f"analysis: lint findings {lint_findings}")
+
+    n = 1 << log2n
+    rng = np.random.default_rng(24)
+    keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    cfg = model.default_config(4)
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    with recording() as rec, SortCounter() as sorts:
+        (out_k, out_v, st), profiled, names = profiler_kernel_counts(
+            lambda: hybrid_sort(keys, vals, cfg=cfg, return_stats=True))
+    main_s = time.perf_counter() - t1
+    counts = dict(COUNTS)
+    p = st.counting_passes
+    params = dict(contracts.hybrid_params(n, cfg, vals=1, val_bytes=4),
+                  passes=p, executed=p, elided=st.elided_passes)
+    decl = hybrid.ANALYSIS_CONTRACT
+    rep = contracts.check_run("main_path", decl, rec, sorts, params,
+                              device="cuda", profiled=profiled,
+                              device_names=names)
+    recorded = rec.counts()
+    for key, name in ANALYSIS_KERNELS.items():
+        need(counts[key] > 0, f"analysis: {key} was not launched: {counts}")
+        need(counts[key] == recorded.get(name, 0),
+             f"analysis: {key} launched {counts[key]} times, recorded "
+             f"{recorded.get(name, 0)}")
+    cen = launch_census(rec)
+    classes = len(hybrid.local_sort_classes(n, cfg))
+    n_pad = fused.pad_length(n, cfg.kpb)
+    want_bytes = (2 * p + 1) * n_pad * 4 + 2 * p * n_pad * 4
+    got_bytes = transfer.derive_hbm_bytes(rec.records, decl["transfer"],
+                                          params)["total"]
+    need(rep.ok, f"analysis: main path: {rep.findings}")
+    need(cen["total"] == 2 + classes and
+         cen["launches"] == 1 + p + classes,
+         f"analysis: census {cen}, classes {classes}, passes {p}")
+    need(sorts.sorts == 0, f"analysis: sort ops at {sorts.sites}")
+    need(got_bytes == want_bytes,
+         f"analysis: sweep bytes {got_bytes} != {want_bytes}")
+    ref_k, ref_i = reference_sort(torch, keys)
+    need(same_bits(torch, out_k, ref_k) and
+         torch.equal(out_v.to(torch.int64), ref_i),
+         "analysis: the recorded sort differs from torch.sort(stable=True)")
+    del ref_k, ref_i, out_k, out_v, keys, vals
+    torch.cuda.empty_cache()
+    res = {"phase": "analysis", "contracts": {r.name: r.ok for r in reports},
+           "sweep_s": sweep_s, "lint": "green",
+           "main_path": {"n": n, "values": "int32", "d": cfg.d,
+                         "kpb": cfg.kpb, "passes": p,
+                         "elided": st.elided_passes, "classes": classes,
+                         "census": cen, "launches": counts,
+                         "recorded": recorded, "profiler": profiled,
+                         "sort_ops": sorts.sorts, "sweep_bytes": got_bytes,
+                         "formula_bytes": want_bytes, "seconds": main_s}}
+    emit(res)
+    return res
+
+
+def analysis_process(log2n):
+    """The analysis phase in a process of its own, started after the other
+    phases: late in this long process ``torch.profiler`` dropped kernel
+    events of short windows (the histogram of a chunk sort, a whole slab
+    sweep) that the launch counters, the recorder and the write replays
+    all saw, while a fresh process traces every one.  Its JSON lines are
+    passed on; returns the phase's result, failing if the process
+    failed."""
+    code = ("import sys, torch, numpy as np\n"
+            f"sys.path.insert(0, {HERE!r})\n"
+            "import chip_smoke\n"
+            "try:\n"
+            "    chip_smoke.analysis_phase(torch, np, "
+            f"{int(log2n)}, torch.device('cuda', 0))\n"
+            "except chip_smoke.Failure as exc:\n"
+            "    sys.exit(f'chip_smoke: FAILED: {exc}')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                          capture_output=True, text=True, timeout=900)
+    res = None
+    for line in proc.stdout.splitlines():
+        print(line, flush=True)
+        if line.startswith("{"):
+            obj = json.loads(line)
+            if obj.get("phase") == "analysis":
+                res = obj
+    need(proc.returncode == 0 and res is not None,
+         f"the analysis process failed (rc {proc.returncode}): "
+         f"{proc.stderr.strip()[-2000:]}")
+    return res
+
+
+def run_analysis_only(torch, np, log2n, reps, dev):
+    """``--only analysis``: the phase, then the main path's four kernels
+    held to their plain versions at its shapes (phase 3's checks) for the
+    kernels line, with the launches of the phase's counted run."""
+    res = analysis_phase(torch, np, log2n, dev)
+    launches = res["main_path"]["launches"]
+    n = 1 << log2n
+    rng = np.random.default_rng(11)
+    keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
+    hist = check_histogram(torch, keys, 6912, reps)["uniform"]
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    rec_kv = capture(torch, keys, vals, passes=1)
+    fused_res = check_fused(torch, rec_kv["passes"][0], n, "kv_pass0", reps)
+    merge_res = check_merge_rows(torch, rec_kv["merge"][0], reps)
+    local_res = check_local_sort(torch, rec_kv, reps, "kv")
+    del rec_kv, keys, vals
+    torch.cuda.empty_cache()
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        dict(name="histogram", route="cuda", source=src + "histogram.cu",
+             replaces="src/repro/kernels/histogram.py:28",
+             launches=launches["histogram"], **_k(hist), bound_by="bytes",
+             library_ms=hist["library_ms"]),
+        dict(name="fused_pass", route="cuda", source=src + "fused_pass.cu",
+             replaces="src/repro/kernels/fused.py:129",
+             launches=launches["fused_pass"], **_k(fused_res),
+             bound_by="bytes", library_ms=None),
+        dict(name="local_sort", route="cuda", source=src + "local_sort.cu",
+             replaces="src/repro/kernels/bitonic.py:94",
+             launches=launches["local_sort"], **_k(local_res),
+             bound_by="bytes", library_ms=local_res["library_ms"]),
+        dict(name="merge_rows", route="cuda", source=src + "merge_rows.cu",
+             replaces="src/repro/core/plan.py:250",
+             launches=launches["merge_rows"], **_k(merge_res),
+             bound_by="bytes", library_ms=None)]
+
 
 def run(args) -> int:
     import torch
@@ -3522,6 +3702,9 @@ def run(args) -> int:
         return finish(torch, run_train(torch, np, args.reps, dev))
     if args.only == "launch":
         return finish(torch, run_launch(torch, np, args.reps, dev))
+    if args.only == "analysis":
+        return finish(torch, run_analysis_only(torch, np, args.log2n,
+                                               args.reps, dev))
 
     # the serve phase: Qwen3-30B-A3B at full width through ServeEngine (its
     # own counted runs; the 61 GB of parameters freed before the next phase)
@@ -3731,6 +3914,12 @@ def run(args) -> int:
             **_k(lib_res[name]),
             bound_by=lib_res[name].get("bound_by", "bytes"),
             library_ms=lib_res[name]["library_ms"]))
+    # the contract layer: every contract with the CUDA kernels, then the
+    # main path at full size under the recorder and the profiler (its own
+    # counted run, in a process of its own)
+    torch.cuda.empty_cache()
+    analysis = analysis_process(args.log2n)
+
     # the launch phase: the one-rank NCCL mesh step, compressed_psum and
     # the dry run (its own counted runs)
     launch_rows = run_launch(torch, np, args.reps, dev)
@@ -3746,6 +3935,8 @@ def run(args) -> int:
           "serve_decode_step_ms": serve["decode_step_ms"],
           "serve_decode_tokens_per_s": serve["decode_tokens_per_s"],
           "serve_step_bound_ms": serve["step_bound_ms"],
+          "analysis_sweep_s": analysis["sweep_s"],
+          "analysis_main_path_s": analysis["main_path"]["seconds"],
           "train_step_ms": TRAIN_SUMMARY.get("step_ms"),
           "train_tokens_per_s": TRAIN_SUMMARY.get("tokens_per_s")})
     return finish(torch, kernels)
@@ -3814,7 +4005,8 @@ def main(argv=None) -> int:
                         help="log2 of the largest key count (default 28)")
     parser.add_argument("--reps", type=int, default=3,
                         help="timed repetitions per measurement")
-    parser.add_argument("--only", choices=("serve", "train", "launch"),
+    parser.add_argument("--only", choices=("serve", "train", "launch",
+                                           "analysis"),
                         help="run only this phase (a quick check)")
     args = parser.parse_args(argv)
     try:

@@ -15,6 +15,10 @@ merges stay in ``core.segmented``, where the reference keeps them):
   ProcessGroupMesh — one shard per torch.distributed rank (NCCL / gloo)
   DistStats, valid_concat — its exchange ledger; the valid prefixes joined
   ENGINES, resolve_engine — "argsort" / "scan" / "kernel" and "auto"
+  FaultPolicy  — deterministic seed-driven fault injection for oocsort
+  RetryPolicy  — bounded retries with capped backoff, ledger-tracked
+  FatalFault, RetriesExhausted, ChecksumError, FAULT_SITES, host_checksum
+               — the fault types, the guarded sites and the run checksum
 """
 from repro_torch.core.bijection import (from_ordered_bits,
                                         from_ordered_bits_np, key_bits,
@@ -23,6 +27,9 @@ from repro_torch.core.distributed import (DistStats, LocalMesh,
                                           ProcessGroupMesh,
                                           make_distributed_sort,
                                           valid_concat)
+from repro_torch.core.faults import (FAULT_SITES, ChecksumError, FatalFault,
+                                     FaultPolicy, RetriesExhausted,
+                                     RetryPolicy, host_checksum)
 from repro_torch.core.hybrid import SortStats, hybrid_sort
 from repro_torch.core.lsd import lsd_sort
 from repro_torch.core.model import (SortConfig, default_config,
@@ -39,4 +46,6 @@ __all__ = [
     "memory_budget", "pass_counts", "expected_speedup",
     "to_ordered_bits", "from_ordered_bits", "to_ordered_bits_np",
     "from_ordered_bits_np", "key_bits", "ENGINES", "resolve_engine",
+    "FAULT_SITES", "FaultPolicy", "RetryPolicy", "FatalFault",
+    "ChecksumError", "RetriesExhausted", "host_checksum",
 ]

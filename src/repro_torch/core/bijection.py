@@ -244,6 +244,17 @@ def packed_carrier_dtype_np(plan: CompressionPlan) -> np.dtype:
     return np.dtype(_WIDTH_TO_UNSIGNED[_packed_width(plan)])
 
 
+def source_carrier_dtype(plan: CompressionPlan) -> torch.dtype:
+    """Signed carrier of the (uncompressed) ordered-bits domain."""
+    return _BITS_TO_SIGNED[plan.source_bits]
+
+
+def source_carrier_dtype_np(plan: CompressionPlan) -> np.dtype:
+    """Unsigned numpy dtype of the (uncompressed) ordered-bits domain (the
+    reference's ``source_carrier_dtype``)."""
+    return np.dtype(_WIDTH_TO_UNSIGNED[plan.source_bits])
+
+
 def _plan_from_summary(orv: int, andv: int, bits: int) -> CompressionPlan:
     mask = orv ^ andv
     return CompressionPlan(mask=mask, dead=andv & ~mask, source_bits=bits)
@@ -290,7 +301,7 @@ def unpack_ordered_bits(packed: torch.Tensor,
     """Exact inverse of :func:`pack_ordered_bits`: widen back to the source
     carrier (the sign extension is masked off), scatter the live runs home,
     and restore the dead-bit constant."""
-    src = _BITS_TO_SIGNED[plan.source_bits]
+    src = source_carrier_dtype(plan)
     x = packed.to(src)
     acc = torch.full(packed.shape, signed_value(plan.dead, plan.source_bits),
                      dtype=src, device=packed.device)
@@ -312,7 +323,7 @@ def pack_ordered_bits_np(ubits: np.ndarray, plan: CompressionPlan) -> np.ndarray
 def unpack_ordered_bits_np(packed: np.ndarray,
                            plan: CompressionPlan) -> np.ndarray:
     """NumPy mirror of :func:`unpack_ordered_bits` on unsigned bits."""
-    src = np.dtype(_WIDTH_TO_UNSIGNED[plan.source_bits])
+    src = source_carrier_dtype_np(plan)
     x = np.asarray(packed).astype(src, copy=False)
     acc = np.full(x.shape, src.type(plan.dead), dtype=src)
     for lo, width, dst in plan.runs():

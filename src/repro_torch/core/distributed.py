@@ -70,6 +70,7 @@ import torch.distributed as dist
 from repro_torch.core import bijection, interop, model
 from repro_torch.core.hybrid import _MOVABLE, _read, hybrid_sort
 from repro_torch.core.segmented import counting_partition, multiway_merge
+from repro_torch.kernels import _build
 
 _I32 = torch.int32
 #: carrier dtype -> the unsigned dtype with the same bits (hybrid_sort's
@@ -128,18 +129,31 @@ class LocalMesh:
         self.shards = tuple(range(self.size))
         self.device = _on_device(device)
 
+    def _report(self, kind: str, nbytes: int) -> None:
+        """Tell the launch recorder one shard's wire bytes of a collective
+        (the reference's weights: ``size`` bytes at (P - 1) / P)."""
+        _build.RECORDER.collective(kind, nbytes * (self.size - 1) / self.size)
+
     def all_gather(self, rows: List[torch.Tensor]) -> torch.Tensor:
         """One equal-length row per shard -> (size, m), on every shard."""
-        return torch.stack([_bytes(r) for r in rows]).view(rows[0].dtype)
+        out = torch.stack([_bytes(r) for r in rows])
+        if _build.RECORDER is not None:
+            self._report("all_gather", out.numel())
+        return out.view(rows[0].dtype)
 
     def all_to_all(self, blocks: List[torch.Tensor]) -> List[torch.Tensor]:
         """Shard i's (size, cap) block: row j goes to shard j, which
         receives the rows from every i as its own (size, cap) block."""
         out = torch.stack([_bytes(b) for b in blocks], dim=1)
+        if _build.RECORDER is not None:
+            self._report("all_to_all", out.numel() // self.size)
         return list(out.view(blocks[0].dtype).unbind(0))
 
     def any(self, flags: List[torch.Tensor]) -> torch.Tensor:
-        """Replicated OR of one bool flag per shard (a device tensor)."""
+        """Replicated OR of one bool flag per shard (a device tensor); on
+        the wire, the all-reduce of one int32 per shard."""
+        if _build.RECORDER is not None:
+            self._report("psum", 2 * 4)
         return torch.stack(flags).any()
 
 
@@ -200,7 +214,7 @@ class ProcessGroupMesh:
     def any(self, flags: List[torch.Tensor]) -> torch.Tensor:
         (flag,) = flags
         self._check(flag)
-        t = flag.reshape(1).to(torch.uint8)
+        t = flag.reshape(1).to(torch.int32)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t[0].bool()
 
@@ -425,16 +439,23 @@ def make_distributed_sort(mesh, *, oversample: int = 64, slack: float = 2.0,
             raise ValueError(
                 f"n_local={n_local} must divide into num_chunks={num_chunks}")
 
-        # stage 1: the local chunk sorts of every held shard
+        # stage 1: the local chunk sorts of every held shard (unrolled, as
+        # in the reference: a loop that only labels the recorder's launches)
+        loop = (None if _build.RECORDER is None else
+                _build.RECORDER.loop("distributed.chunk_sorts", unrolled=True))
         pieces = []
         for s in range(held):
             row = []
             for c in range(num_chunks):
+                if loop is not None:
+                    loop.step()
                 lo = s * n_local + c * chunk
                 row.append(_sort_chunk(carrier[lo:lo + chunk],
                                        [v[lo:lo + chunk] for v in leaves],
                                        cfg, engine))
             pieces.append(row)
+        if loop is not None:
+            loop.close()
         del carrier
 
         def attempt(a):
@@ -529,3 +550,32 @@ def valid_concat(out, valid):
     per = np.asarray(out).reshape(len(valid), -1)
     return np.concatenate([per[i][:v] for i, v in enumerate(valid)])
 
+
+# --- contract declaration (verified by repro_torch.analysis; see
+# analysis/contracts)
+# Shard-body census: per chunk one full hybrid sort, per cond-guarded attempt
+# per chunk one bucketing counting pass (2 sites), plus the 2-bucket validity
+# compaction.  Link bytes re-derive the ICI table of kernels/__init__ from
+# the collective-primitive result shapes: per attempt per chunk one keys +
+# ``leaves`` payload + one counts all_to_all at capacity padding, per attempt
+# one splitter-sample all_gather (samp lists the gathered per-shard sample
+# lengths) and one scalar overflow psum.
+ANALYSIS_CONTRACT = {
+    "entry": "repro_torch.core.distributed.make_distributed_sort",
+    "census": {
+        "launch_total": "chunks * (2 + classes)"
+                        " + 2 * attempts * chunks + 2",
+        "while_body_launches": "[1] * chunks",
+    },
+    "sort_free": True,
+    "link": {
+        "collective_counts": {
+            "all_to_all": "attempts * chunks * (2 + leaves)",
+            "all_gather": "attempts",
+            "psum": "attempts",
+        },
+        "link_bytes": "((P - 1) / P) * ("
+                      "attempts * chunks * P * (cap * (kb + vb) + 4)"
+                      " + kb * P * sum(samp) + attempts * 2 * 4)",
+    },
+}

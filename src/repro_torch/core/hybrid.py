@@ -197,11 +197,15 @@ def _hybrid_sort_bits(ukeys, leaves, cfg: model.SortConfig, k: int,
         hist_cur = fused.initial_histogram(ck, n, max(k - w0, 0), w0, r,
                                            a_max, cfg.kpb)
         hist_nxt = torch.zeros_like(hist_cur)
+        loop = (None if _build.RECORDER is None else
+                _build.RECORDER.loop("hybrid_sort.passes"))
         while p < nd:
             any_active, single = _read(torch.stack(
                 [(~done).any(), _single_digit(hist_cur)]))
             if not any_active:
                 break
+            if loop is not None:
+                loop.step()
             asegs = plan.active_segments(seg, done, a_max)
             dest_base, new_seg, new_done = _bookkeeping(seg, done, asegs,
                                                         hist_cur, cfg)
@@ -228,6 +232,8 @@ def _hybrid_sort_bits(ukeys, leaves, cfg: model.SortConfig, k: int,
                 p_exec += 1
             seg, done = new_seg, new_done
             p += 1
+        if loop is not None:
+            loop.close()
         ukeys = ck[:n]
         leaves = [v[:n] for v in cv]
     else:
@@ -347,3 +353,28 @@ def hybrid_sort(keys, values: Any = None,
         return (out_keys, stats) if return_stats else out_keys
     vals = interop.tree_unflatten(treedef, leaves)
     return (out_keys, vals, stats) if return_stats else (out_keys, vals)
+
+
+# --- contract declaration (verified by repro_torch.analysis; see
+# analysis/contracts)
+# Formulas are symbolic in the structural parameters the analyzer derives per
+# (n, cfg): classes = len(local_sort_classes(n, cfg)), passes = ⌈k/d⌉ nominal
+# schedule slots, n_pad = fused.pad_length(n, cfg.kpb), kb/vb = key/value
+# bytes, vals = payload leaves, g_max/B = descriptor rows / super-step width.
+# The port checks them on a recorded run: passes is then the EXECUTED count
+# (SortStats.counting_passes), and the loop body is the largest number of
+# launches in one iteration (see analysis/contracts).
+ANALYSIS_CONTRACT = {
+    "entry": "repro_torch.core.hybrid.hybrid_sort",
+    "census": {
+        "launch_total": "2 + classes",
+        "while_body_launches": "[1]",
+        "fused_grid": "ceil_div(g_max, B)",
+    },
+    "sort_free": True,
+    "donation": {"_fused_pass_kernel": "1 + vals"},
+    "transfer": {
+        "sweep_kernels": ["_hist_kernel", "_fused_pass_kernel"],
+        "bytes": "(2 * passes + 1) * n_pad * kb + 2 * passes * n_pad * vb",
+    },
+}

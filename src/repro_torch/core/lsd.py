@@ -111,3 +111,23 @@ def lsd_sort(keys, values: Any = None, d: int = 5,
     if return_passes:
         return (*((out,) if values is None else out), nd)
     return out
+
+
+# --- contract declaration (verified by repro_torch.analysis; see
+# analysis/contracts)
+# The LSD sort unrolls its schedule: ⌈k/d⌉ fused launches + one prologue
+# histogram, no device loop, every fused launch on the batched ⌈g_max/B⌉ grid.
+ANALYSIS_CONTRACT = {
+    "entry": "repro_torch.core.lsd.lsd_sort",
+    "census": {
+        "launch_total": "passes + 1",
+        "while_body_launches": "[]",
+        "fused_grid": "ceil_div(g_max, B)",
+    },
+    "sort_free": True,
+    "donation": {"_fused_pass_kernel": "1 + vals"},
+    "transfer": {
+        "sweep_kernels": ["_hist_kernel", "_fused_pass_kernel"],
+        "bytes": "(2 * passes + 1) * n_pad * kb + 2 * passes * n_pad * vb",
+    },
+}

@@ -1234,3 +1234,45 @@ def _resume(resume_from: str, *, spill_budget_bytes, faults, retry,
             retry_link_bytes=faultlog.retry_link_bytes)
         out = out + (stats,)
     return out[0] if len(out) == 1 else out
+
+
+# --- contract declarations (verified by repro_torch.analysis; see
+# analysis/contracts)
+# §5 census + transfer tables: a chunk sort inherits the hybrid contract at
+# chunk size; a device merge round and a spill slab sweep are each ONE
+# kway_merge_round launch moving exactly one read + one write sweep of the
+# (pad_length-sized) run/slab buffer.
+ANALYSIS_CONTRACTS = {
+    "ooc_chunk_sort": {
+        "entry": "repro_torch.core.outofcore._sort_chunk",
+        "census": {"launch_total": "2 + classes",
+                   "while_body_launches": "[1]"},
+        "sort_free": True,
+        "donation": {"_fused_pass_kernel": "1 + vals"},
+        "transfer": {
+            "sweep_kernels": ["_hist_kernel", "_fused_pass_kernel"],
+            "bytes": "(2 * passes + 1) * n_pad * kb"
+                     " + 2 * passes * n_pad * vb",
+        },
+    },
+    "ooc_merge_round": {
+        "entry": "repro_torch.core.outofcore.merge_round",
+        "census": {"launch_total": "1", "while_body_launches": "[]"},
+        "sort_free": True,
+        "donation": {"_kway_merge_kernel": "1 + vals"},
+        "transfer": {
+            "sweep_kernels": ["_kway_merge_kernel"],
+            "bytes": "2 * n_pad * kb + 2 * n_pad * vb",
+        },
+    },
+    "ooc_slab_sweep": {
+        "entry": "repro_torch.kernels.merge.kway_merge_round",
+        "census": {"launch_total": "1", "while_body_launches": "[]"},
+        "sort_free": True,
+        "donation": {"_kway_merge_kernel": "1 + vals"},
+        "transfer": {
+            "sweep_kernels": ["_kway_merge_kernel"],
+            "bytes": "2 * n_pad * kb + 2 * n_pad * vb",
+        },
+    },
+}

@@ -199,7 +199,11 @@ def merge_rows(hist: torch.Tensor, local_threshold: int, merge_threshold: int):
     starts a new (merged) bucket, and whether that bucket is finished.
     """
     if _build.on_cpu(hist):
-        return ref.merge_rows_ref(hist, local_threshold, merge_threshold)
+        out = ref.merge_rows_ref(hist, local_threshold, merge_threshold)
+        if _build.RECORDER is not None and hist.shape[0]:
+            _build.RECORDER.launch("merge_rows", plain=True, reads=(hist,),
+                                   writes=out)
+        return out
     hist = hist.to(_I32).contiguous()
     _build.check_cuda(hist)
     gstart = torch.empty(hist.shape, dtype=torch.bool, device=hist.device)
@@ -213,6 +217,9 @@ def merge_rows(hist: torch.Tensor, local_threshold: int, merge_threshold: int):
                     _build.stream_handle(hist.device))
         _build.check("merge_rows", rc)
         _build.COUNTS["merge_rows"] += 1
+        if _build.RECORDER is not None:
+            _build.RECORDER.launch("merge_rows", plain=False, reads=(hist,),
+                                   writes=(gstart, gdone))
     return gstart, gdone
 
 
@@ -292,13 +299,21 @@ def one_segment_passes(ukeys, leaves, d: int, k: int, kpb: int, lo: int,
     nsid = torch.zeros(r, dtype=_I32, device=dev)    # every digit: segment 0
     w0 = min(d, max(k - lo, 1))
     hist0 = seg_hist = fused.initial_histogram(ck, n, lo, w0, r, 1, kpb)
+    # the passes are unrolled, as in the reference: a loop that only
+    # labels the launches of the recorder
+    loop = (None if _build.RECORDER is None else
+            _build.RECORDER.loop("lsd.passes", unrolled=True))
     for p in range(nd):
+        if loop is not None:
+            loop.step()
         base_excl = torch.cumsum(seg_hist, 1, dtype=_I32) - seg_hist
         nk, nv, hist_next = fused.fused_counting_pass(
             ck, cv, ak, av, lsd_digit_window(p, k, d, lo=lo), *blocks,
             base_excl, nsid, kpb=kpb, r=r, a_max=1, n=n)
         ak, av, ck, cv = ck, cv, nk, nv
         seg_hist = hist_next.reshape(1, r)
+    if loop is not None:
+        loop.close()
     return ck[:n], [v[:n] for v in cv], hist0
 
 
@@ -331,3 +346,24 @@ def single_pass_partition(ids: torch.Tensor, num_buckets: int,
     _, (perm,), hist0 = one_segment_passes(ids, (iota,), width, width, kpb,
                                            0, 1)
     return invert_permutation(perm), perm, hist0[0, :num_buckets]
+
+
+# --- contract declaration (verified by repro_torch.analysis; see
+# analysis/contracts)
+# One standalone partition = prologue histogram + ONE fused launch; the iota
+# permutation payload rides as one value leaf (vals = 1), so the pass moves
+# (2·1+1) key sweeps + 2 payload sweeps over the padded buffer.
+ANALYSIS_CONTRACT = {
+    "entry": "repro_torch.core.plan.single_pass_partition",
+    "census": {
+        "launch_total": "2",
+        "while_body_launches": "[]",
+        "fused_grid": "ceil_div(g_max, B)",
+    },
+    "sort_free": True,
+    "donation": {"_fused_pass_kernel": "1 + vals"},
+    "transfer": {
+        "sweep_kernels": ["_hist_kernel", "_fused_pass_kernel"],
+        "bytes": "(2 * passes + 1) * n_pad * kb + 2 * passes * n_pad * vb",
+    },
+}

@@ -259,3 +259,24 @@ def _dist_order(lengths: np.ndarray, mesh, engine):
         for t in (out, order_out))
     keep = order_all < n
     return sorted_all[keep], order_all[keep]
+
+
+# --- contract declaration (verified by repro_torch.analysis; see
+# analysis/contracts)
+# Length bucketing partitions ids into 256 buckets with ONE counting pass
+# (prologue histogram + fused launch), iota payload as the value leaf — the
+# data-pipeline consumer of the same partition primitive.
+ANALYSIS_CONTRACT = {
+    "entry": "repro_torch.core.segmented.counting_partition",
+    "census": {
+        "launch_total": "2",
+        "while_body_launches": "[]",
+        "fused_grid": "ceil_div(g_max, B)",
+    },
+    "sort_free": True,
+    "donation": {"_fused_pass_kernel": "1 + vals"},
+    "transfer": {
+        "sweep_kernels": ["_hist_kernel", "_fused_pass_kernel"],
+        "bytes": "(2 * passes + 1) * n_pad * kb + 2 * passes * n_pad * vb",
+    },
+}

@@ -21,7 +21,8 @@ assigned   — the descriptor-driven histogram (ports
 ref        — the kernels' plain PyTorch versions and the reference's
              oracles (the CPU path, and the ground truth the kernels are
              held to on the card)
-_build     — nvcc build at first use, ctypes loading, launch counters
+_build     — nvcc build at first use, ctypes loading, launch counters,
+             the launch recorder's slot (``repro_torch.analysis``)
 
 The package exports the reference's library surface by its names.
 ``segmented_local_sort`` and ``apply_run_copies`` keep the port's

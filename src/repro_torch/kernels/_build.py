@@ -11,6 +11,10 @@ force a rebuild.  ``build_all`` starts one ``nvcc`` per source at once.
 ``COUNTS`` holds one plain integer per kernel.  A wrapper adds one exactly
 where it launches its kernel, so a run can show that it went through the
 kernel; ``host_reads`` counts the device-to-host reads of the sort loop.
+
+``RECORDER`` is the launch recorder of ``repro_torch.analysis.trace`` while
+one is recording, else None: every wrapper tests it once, where it has
+picked its kernel or its plain version, and reports the launch to it.
 """
 from __future__ import annotations
 
@@ -38,6 +42,10 @@ SOURCES = {"histogram": "histogram.cu", "fused_pass": "fused_pass.cu",
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: the active ``analysis.trace.Recorder``, or None (the default: no cost
+#: beyond one ``is None`` test per launch)
+RECORDER = None
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]

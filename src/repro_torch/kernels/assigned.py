@@ -34,8 +34,12 @@ def assigned_histogram(keys: torch.Tensor, tile_idx: torch.Tensor,
     [-T, -1] counts from the end and any index is then clamped to
     [0, T-1]."""
     if _build.on_cpu(keys):
-        return ref.assigned_histogram_ref(keys, tile_idx, valid, shift,
-                                          width)
+        out = ref.assigned_histogram_ref(keys, tile_idx, valid, shift, width)
+        if _build.RECORDER is not None and tile_idx.shape[0]:
+            _build.RECORDER.launch("_assigned_hist_kernel", plain=True,
+                                   reads=(keys,), writes=(out,),
+                                   tables=tuple(tile_idx.shape))
+        return out
     check_width(width)
     b, logical = ref.signed_bits(keys.contiguous())
     t, kpb = b.shape
@@ -59,4 +63,8 @@ def assigned_histogram(keys: torch.Tensor, tile_idx: torch.Tensor,
                 _build.stream_handle(b.device))
     _build.check("histogram", rc)
     _build.COUNTS["assigned_hist"] += 1
+    if _build.RECORDER is not None:
+        _build.RECORDER.launch("_assigned_hist_kernel", plain=False,
+                               reads=(keys,), writes=(out,),
+                               tables=tuple(tile_idx.shape))
     return out

@@ -60,7 +60,11 @@ def _network(keys: torch.Tensor, vals):
     if vals is not None and vals.shape != keys.shape:
         raise ValueError("keys and values must have the same (S, L) shape")
     if _build.on_cpu(keys):
-        return ref.bitonic_rows_ref(keys, vals)
+        out = ref.bitonic_rows_ref(keys, vals)
+        if _build.RECORDER is not None and keys.shape[0] and \
+                keys.shape[1] > 1:
+            _record_rows(keys, vals, out, True)
+        return out
     s, length = keys.shape
     val_bytes = 0 if vals is None else vals.element_size()
     if length & (length - 1):
@@ -95,7 +99,19 @@ def _network(keys: torch.Tensor, vals):
         _build.check("bitonic_rows", rc)
         _build.COUNTS["bitonic_rows" if vals is None else
                       "bitonic_rows_kv"] += 1
+        if _build.RECORDER is not None:
+            _record_rows(keys, vals, (out_k, out_v), False)
     return out_k if vals is None else (out_k, out_v)
+
+
+def _record_rows(keys, vals, out, plain) -> None:
+    """Report one launch of the min/max row network to the recorder."""
+    if vals is None:
+        _build.RECORDER.launch("_bitonic_kernel", plain=plain, reads=(keys,),
+                               writes=(out if plain else out[0],))
+    else:
+        _build.RECORDER.launch("_bitonic_kv_kernel", plain=plain,
+                               reads=(keys, vals), writes=tuple(out))
 
 
 def bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
@@ -115,7 +131,12 @@ def bitonic_sort_rows_stable(keys: torch.Tensor, idx: torch.Tensor):
     """Sort (S, L) rows by (key, idx); L a power of two, ``idx`` int32 and
     distinct within each row.  Returns ``(sorted_keys, permuted_idx)``."""
     if _build.on_cpu(keys):
-        return ref.bitonic_sort_rows_stable_ref(keys, idx)
+        out = ref.bitonic_sort_rows_stable_ref(keys, idx)
+        if _build.RECORDER is not None and keys.shape[0] and \
+                keys.shape[1] > 1:
+            _build.RECORDER.launch("_bitonic_stable_kernel", plain=True,
+                                   reads=(keys, idx), writes=out)
+        return out
     s, length = keys.shape
     _check_len(length, keys.element_size())
     idx = idx.to(torch.int32).contiguous()
@@ -132,6 +153,9 @@ def bitonic_sort_rows_stable(keys: torch.Tensor, idx: torch.Tensor):
                 _build.stream_handle(keys.device))
     _build.check("local_sort", rc)
     _build.COUNTS["local_sort"] += 1
+    if _build.RECORDER is not None:
+        _build.RECORDER.launch("_bitonic_stable_kernel", plain=False,
+                               reads=(keys, idx), writes=(out_k, out_i))
     return out_k, out_i
 
 
@@ -156,6 +180,8 @@ def sort_segments_stable(buf: torch.Tensor, perm, starts: torch.Tensor,
     leaves = tuple(leaves)
     if _build.on_cpu(buf):
         ref.sort_segments_ref(buf, perm, starts, sizes, length, leaves)
+        if _build.RECORDER is not None and starts.shape[0]:
+            _record_segments(buf, perm, leaves, True)
         return
     if length < 1 or length & (length - 1):
         raise ValueError("row length must be a power of two")
@@ -183,3 +209,12 @@ def sort_segments_stable(buf: torch.Tensor, perm, starts: torch.Tensor,
                 _build.stream_handle(buf.device))
     _build.check("local_sort", rc)
     _build.COUNTS["local_sort"] += 1
+    if _build.RECORDER is not None:
+        _record_segments(buf, perm, leaves, False)
+
+
+def _record_segments(buf, perm, leaves, plain) -> None:
+    """Report one class launch of the in-place local sort."""
+    written = (buf, *leaves, *(() if perm is None else (perm,)))
+    _build.RECORDER.launch("_bitonic_stable_kernel", plain=plain,
+                           reads=(buf, *leaves), writes=written)

@@ -103,13 +103,17 @@ def initial_histogram(buf_keys: torch.Tensor, n: int, lo: int, width: int,
     """Pass 0's (a_max, r) histogram table over the single segment [0, n):
     the one unfused key sweep of the sort (§4.3), row 0 populated."""
     r0 = 1 << width
-    if _build.on_cpu(buf_keys):
+    cpu = _build.on_cpu(buf_keys)
+    if cpu:
         # the reference's form: tile rows, sum, drop the sentinel padding
         hist = ref.radix_histogram_ref(buf_keys.reshape(-1, kpb), lo,
                                        width).sum(0, dtype=torch.int32)
         hist[r0 - 1] -= buf_keys.shape[0] - n
     else:
         hist = digit_total(buf_keys, n, lo, width)
+    if _build.RECORDER is not None and n:
+        _build.RECORDER.launch("_hist_kernel", plain=cpu, reads=(buf_keys,),
+                               writes=(hist,))
     out = torch.zeros((a_max, r), dtype=torch.int32, device=buf_keys.device)
     out[0, :r0] = hist
     return out
@@ -191,10 +195,23 @@ def fused_counting_pass(src_keys, src_vals, alt_keys, alt_vals, pass_scalars,
     sc = [int(v) for v in pass_scalars]
     sc = (sc + [0, 0])[:6]
     tables = (blk_seg, blk_off, blk_reset, blk_count, blk_active)
-    if _build.on_cpu(src_keys):
-        return ref.fused_counting_pass_ref(
+    cpu = _build.on_cpu(src_keys)
+    if cpu:
+        out = ref.fused_counting_pass_ref(
             src_keys, src_vals, alt_keys, alt_vals, sc, *tables, base_excl,
             next_sid, kpb=kpb, r=r, a_max=a_max, n=n, lookahead=lookahead)
-    hists = _launch(src_keys, tuple(src_vals), alt_keys, tuple(alt_vals), sc,
-                    tables, base_excl, next_sid, kpb, r, a_max, n, lookahead)
-    return (alt_keys, tuple(alt_vals), *hists)
+    else:
+        out = (alt_keys, tuple(alt_vals),
+               *_launch(src_keys, tuple(src_vals), alt_keys, tuple(alt_vals),
+                        sc, tables, base_excl, next_sid, kpb, r, a_max, n,
+                        lookahead))
+    if _build.RECORDER is not None:
+        _build.RECORDER.launch(
+            "_fused_pass_kernel", plain=cpu, reads=(src_keys, *src_vals),
+            writes=(out[0], *out[1]), alts=(alt_keys, *alt_vals),
+            tables=blk_seg.shape,
+            call=(fused_counting_pass,
+                  (src_keys, src_vals, alt_keys, alt_vals, sc, *tables,
+                   base_excl, next_sid),
+                  dict(kpb=kpb, r=r, a_max=a_max, n=n, lookahead=lookahead)))
+    return out

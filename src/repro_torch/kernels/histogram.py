@@ -92,12 +92,18 @@ def _launch(keys, n, chunk, grid, shift, width, out, accumulate,
 def radix_histogram(keys: torch.Tensor, shift: int,
                     width: int) -> torch.Tensor:
     """(T, KPB) integer keys -> (T, 2^width) int32 per-tile histograms."""
-    if _build.on_cpu(keys):
-        return ref.radix_histogram_ref(keys, shift, width)
-    t, kpb = keys.shape
-    out = torch.empty((t, 1 << width), dtype=torch.int32, device=keys.device)
-    if t:
-        _launch(keys, t * kpb, kpb, t, shift, width, out, 0)
+    cpu = _build.on_cpu(keys)
+    if cpu:
+        out = ref.radix_histogram_ref(keys, shift, width)
+    else:
+        t, kpb = keys.shape
+        out = torch.empty((t, 1 << width), dtype=torch.int32,
+                          device=keys.device)
+        if t:
+            _launch(keys, t * kpb, kpb, t, shift, width, out, 0)
+    if _build.RECORDER is not None and keys.shape[0]:
+        _build.RECORDER.launch("_hist_kernel", plain=cpu, reads=(keys,),
+                               writes=(out,))
     return out
 
 

@@ -299,12 +299,24 @@ def kway_merge_round(src_keys, src_vals, alt_keys, alt_vals, out_off,
     """
     if rank not in ("searchsorted", "counting"):
         raise ValueError(f"unknown tile rank mode {rank!r}")
-    if _build.on_cpu(src_keys):
-        return ref.kway_merge_round_ref(
+    cpu = _build.on_cpu(src_keys)
+    if cpu:
+        out = ref.kway_merge_round_ref(
             src_keys, tuple(src_vals), alt_keys, tuple(alt_vals), out_off,
             out_cnt, win_start, win_take, kway=kway, tpb=tpb, n=n, rank=rank)
-    return _launch(src_keys, src_vals, alt_keys, alt_vals,
-                   (out_off, out_cnt, win_start, win_take), kway, tpb, None)
+    else:
+        out = _launch(src_keys, src_vals, alt_keys, alt_vals,
+                      (out_off, out_cnt, win_start, win_take), kway, tpb, None)
+    if _build.RECORDER is not None and out_off.numel():
+        _build.RECORDER.launch(
+            "_kway_merge_kernel", plain=cpu, reads=(src_keys, *src_vals),
+            writes=(out[0], *out[1]), alts=(alt_keys, *alt_vals),
+            tables=tuple(out_off.shape),
+            call=(kway_merge_round,
+                  (src_keys, src_vals, alt_keys, alt_vals, out_off, out_cnt,
+                   win_start, win_take),
+                  dict(kway=kway, tpb=tpb, n=n, rank=rank)))
+    return out
 
 
 def _kway_merge_probe(src_keys, src_vals, alt_keys, alt_vals, out_off,

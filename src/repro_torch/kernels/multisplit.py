@@ -39,8 +39,11 @@ _PHASES = {"load": 0, "rank": 1, "write": 2, "full": 3}
 
 def _split(keys, vals, shift, width, key_bits, val_bits, phases=None):
     if _build.on_cpu(keys):
-        return ref.tile_multisplit_kv_ref(keys, vals, shift, width, key_bits,
-                                          val_bits)
+        out = ref.tile_multisplit_kv_ref(keys, vals, shift, width, key_bits,
+                                         val_bits)
+        if _build.RECORDER is not None and keys.numel():
+            _record(keys, vals, out, True)
+        return out
     check_width(width)
     ref.check_multisplit_dtypes(keys, vals)
     b, logical = ref.signed_bits(keys.contiguous())
@@ -79,10 +82,21 @@ def _split(keys, vals, shift, width, key_bits, val_bits, phases=None):
             f"a tile of {kpb} keys is over 65536 keys or over the shared "
             f"memory one CTA can hold"))
         _build.COUNTS["multisplit" if vb is None else "multisplit_kv"] += 1
+        if _build.RECORDER is not None and phases is None:
+            _record(keys, vals, (out_k, *(() if out_v is None else (out_v,)),
+                                 digit, rank, hist), False)
     out_k = out_k.view(keys.dtype)
     if vals is None:
         return out_k, digit, rank, hist
     return out_k, out_v.view(vals.dtype), digit, rank, hist
+
+
+def _record(keys, vals, out, plain) -> None:
+    """Report one multisplit launch to the recorder."""
+    _build.RECORDER.launch(
+        "_multisplit_kernel" if vals is None else "_multisplit_kv_kernel",
+        plain=plain, reads=(keys,) if vals is None else (keys, vals),
+        writes=tuple(out))
 
 
 def tile_multisplit(keys: torch.Tensor, shift: int, width: int,

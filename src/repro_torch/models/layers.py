@@ -376,6 +376,11 @@ def flash_attention(q, k, v, positions, window, block: int):
     return acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
 
 
+def np_sqrt(x):
+    """Host square root of a Python number (the reference's helper)."""
+    return math.sqrt(x)
+
+
 # --------------------------- SwiGLU MLP -------------------------------------
 
 def init_mlp(generator, d_model: int, d_ff: int, dtype, device=None):

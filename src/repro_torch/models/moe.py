@@ -327,7 +327,8 @@ def moe_layer(params, x, cfg, *, groups: int = 1,
     return constrain(out.reshape(b, s, d), P(dp, None, None)), aux
 
 
-# --- contract declaration, as data (the reference's, at the port's entry)
+# --- contract declaration (verified by repro_torch.analysis; see
+# analysis/contracts)
 # The sort-path MoE dispatch is one capacity_dispatch per token group: ONE
 # counting pass (prologue histogram + fused launch) with the iota
 # permutation riding as the single value leaf.

@@ -1745,3 +1745,93 @@ def test_one_rank_nccl_mesh_step_on_card_is_bit_equal(dev, arch):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     for a, b in zip(got[2], want[2]):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the contract layer (repro_torch.analysis) on the card
+# --------------------------------------------------------------------------
+
+CONTRACT_NAMES = ["hybrid_sort", "hybrid_sort_kv", "lsd_sort",
+                  "single_pass_partition", "moe_dispatch",
+                  "pipeline_bucketing", "ooc_chunk_sort", "ooc_merge_round",
+                  "ooc_slab_sweep", "distributed_shard"]
+
+
+@pytest.mark.parametrize("name", CONTRACT_NAMES)
+def test_contract_holds_with_the_cuda_kernels(dev, name):
+    """Census (and the recorder against torch.profiler), sort-free, in
+    place, sweep / link bytes and the write replay, on the card."""
+    from repro_torch.analysis import contracts
+    rep = contracts.run_contract(contracts.REGISTRY[name], dev)
+    assert rep.ok, rep.findings
+    assert not any(r for r in rep.checks.values())
+
+
+def test_descriptor_tables_hold_on_the_card(dev):
+    from repro_torch.analysis import contracts
+    checks = contracts.table_checks(dev)
+    assert checks and not any(checks.values()), checks
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+def test_recorder_equals_the_profiler_on_the_main_path(dev, with_values):
+    """A 2^22-key hybrid_sort at Table 3's config: the recorder's launches
+    kernel by kernel equal torch.profiler's and the launch counters, no
+    sort op, the declared census, in-place alternates and sweep bytes."""
+    from repro_torch import hybrid_sort
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.trace import recording
+    from repro_torch.core import hybrid, model
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.utils.census import (SortCounter, grouped,
+                                          profiler_kernel_counts)
+    n = 1 << 22
+    keys = torch.from_numpy(_keys(np.random.default_rng(22), n)).to(dev)
+    vals = (torch.arange(n, dtype=torch.int32, device=dev)
+            if with_values else None)
+    cfg = model.default_config(4)
+    reset_counts()
+    with recording() as rec, SortCounter() as sorts:
+        out, profiled, _ = profiler_kernel_counts(
+            lambda: hybrid_sort(keys, vals, cfg=cfg, return_stats=True))
+    st = out[-1]
+    assert grouped(rec.counts()) == profiled
+    assert rec.counts()["_fused_pass_kernel"] == COUNTS["fused_pass"] == \
+        st.counting_passes
+    assert rec.counts()["_bitonic_stable_kernel"] == COUNTS["local_sort"]
+    params = dict(contracts.hybrid_params(
+        n, cfg, vals=int(with_values), val_bytes=4 * int(with_values)),
+        passes=st.counting_passes, executed=st.counting_passes,
+        elided=st.elided_passes)
+    rep = contracts.check_run("main_path", hybrid.ANALYSIS_CONTRACT, rec,
+                              sorts, params, device="cuda",
+                              profiled=profiled)
+    assert rep.ok, rep.findings
+    assert not any(r.plain for r in rec.records)
+
+
+def test_analysis_cli_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.count("PASS") == 12
+
+
+def test_fault_matrix_on_the_card(dev):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "torch_fault_matrix.py"
+    spec = importlib.util.spec_from_file_location("torch_fault_matrix", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.run_matrix() == 0

@@ -62,7 +62,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.mesh, repro_torch.launch.sharding, "
             "repro_torch.launch.dryrun, repro_torch.utils, "
             "repro_torch.utils.roofline, repro_torch.utils.collectives, "
-            "repro_torch.optim.compression\n"
+            "repro_torch.optim.compression, repro_torch.analysis, "
+            "repro_torch.analysis.__main__, repro_torch.utils.census\n"
             "import repro_torch.configs as c\n"
             "[c.get_config(a) for a in c.ARCHS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
