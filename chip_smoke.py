@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together) and drives nine paths of
+(one ``nvcc`` per source, all started together) and drives ten paths of
 the port, each with the launch counters set to 0 just before it and read
 just after:
 
@@ -66,6 +66,31 @@ just after:
   three roofline terms reckoned with the H100's constants, the
   bottleneck, ``mfu_bound``, whether it fits 80 GB) on its own line, every
   cell required ``ok``;
+* the user-facing entry points (its ``examples`` phase, after the launch
+  path), each as a user runs it, at the reference's sizes:
+  ``scripts/torch_smoke_sort.py`` (n from 0 to 20 000 and five key kinds
+  with values at the small config, LSD; ``SMOKE OK``),
+  ``examples/torch_quickstart.py`` (2^18 keys alone, with values and
+  AND-skewed, 10^5 floats, ``lsd_sort`` at d = 5),
+  ``examples/torch_distributed_sort.py`` (2^21 keys over ``LocalMesh(8)``:
+  uniform, AND-3, 4 chunks, KV), ``examples/torch_serve_decode.py`` (10
+  requests on the smoke InternLM2) and ``examples/torch_train_moe.py``
+  (the 100M Qwen3-family MoE to step 100, then the same command to step
+  200, resumed from its checkpoint in a temporary directory), each in
+  this process with the counters at 0 and under the launch recorder:
+  the CUDA kernels launched (histogram, fused pass and, for the sorts,
+  the local sort), no plain version, every printed ``ok`` true; then
+  ``scripts/torch_probe_multipod.py`` (in a process of its own, on the
+  host: the 512-rank mesh over a fake group, ``PROBE OK``, each of the
+  five collective kinds counted) and
+  ``scripts/torch_make_experiments_tables.py`` on the launch path's
+  dry-run artifacts (every ``ok`` cell once per table); the histogram
+  and the fused pass held to their plain versions at the shapes these
+  entries gave them (``serve_decode``'s admission partition of 10 ids,
+  ``train_moe``'s first MoE dispatch), beside ``torch.bincount`` and
+  ``torch.sort(stable=True)`` + ``torch.bincount``, as four rows of the
+  kernels line; wall seconds, passes, exchange attempts and shard fill,
+  batches and tokens, ``train_moe``'s losses and ms per step;
 * the main path, ``repro_torch.hybrid_sort`` at its default engine (which
   must resolve to the kernels), on 2^28 uint32 keys alone and with values,
   Zipf, AND-3, float and int64 keys: every kernel is first held to its
@@ -174,9 +199,11 @@ no result.
 chunks of 2^log2n, the spill budget 2^(log2n + 6) bytes, the library
 inputs 2^log2n keys): a quick check;
 ``--reps`` sets the timed repetitions; ``--only serve`` / ``--only
-train`` / ``--only launch`` / ``--only analysis`` runs that phase alone
-(``analysis`` then holds the main path's histogram, fused pass, local
-sort and ``merge_rows`` to their plain versions for the kernels line).  None is needed for the full run, which runs every phase at
+train`` / ``--only launch`` / ``--only analysis`` / ``--only examples``
+runs that phase alone (``analysis`` and ``examples`` then hold the main
+path's histogram, fused pass, local sort and ``merge_rows`` to their
+plain versions for the kernels line; ``examples`` starts the dry run
+whose artifacts the tables script reads itself).  None is needed for the full run, which runs every phase at
 full size.
 """
 from __future__ import annotations
@@ -3337,7 +3364,7 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def launch_phase(torch, np, reps, dev):
+def launch_phase(torch, np, reps, dev, keep=None):
     """(a) One train step of Qwen3-30B-A3B at its full published width, cut
     to ``LAUNCH_LAYERS`` layers, on a one-rank NCCL ``DeviceMesh`` (1, 1):
     parameters, optimizer state and batch DTensors placed by the sharding
@@ -3347,7 +3374,8 @@ def launch_phase(torch, np, reps, dev):
     fused-pass launches); each step timed again (CUDA events).  (b)
     ``compressed_psum`` over that group bit-equal to the int8 round trip.
     (c) The dry run of Qwen3-30B-A3B's three shapes on the pod and
-    multipod meshes, started first, one process a mesh.  (d) The
+    multipod meshes, started first, one process a mesh (its artifacts, one
+    directory per mesh, copied into ``keep`` when it is given).  (d) The
     histogram and the fused pass at the mesh step's dispatch shape against
     their plain versions."""
     import dataclasses
@@ -3482,6 +3510,9 @@ def launch_phase(torch, np, reps, dev):
 
         # (c) the dry run
         dryrun = finish_dryrun(*dry, tmp.name)
+        if keep is not None:
+            import shutil
+            shutil.copytree(tmp.name, keep, dirs_exist_ok=True)
     finally:
         stop(dry[0])
         tmp.cleanup()
@@ -3653,7 +3684,15 @@ def run_analysis_only(torch, np, log2n, reps, dev):
     held to their plain versions at its shapes (phase 3's checks) for the
     kernels line, with the launches of the phase's counted run."""
     res = analysis_phase(torch, np, log2n, dev)
-    launches = res["main_path"]["launches"]
+    return main_path_rows(torch, np, log2n, reps, dev,
+                          res["main_path"]["launches"])
+
+
+def main_path_rows(torch, np, log2n, reps, dev, launches):
+    """The kernels line's rows 1-3 and 10 for a phase run alone: the main
+    path's histogram, fused pass, local sort and ``merge_rows`` held to
+    their plain versions at its shapes (phase 3's checks), beside
+    ``launches``, the counts of that phase's counted runs."""
     n = 1 << log2n
     rng = np.random.default_rng(11)
     keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
@@ -3685,6 +3724,392 @@ def run_analysis_only(torch, np, log2n, reps, dev):
              bound_by="bytes", library_ms=None)]
 
 
+# --------------------------------------------------------------------------
+# the examples phase: the user-facing entry points on the card
+# --------------------------------------------------------------------------
+
+#: the kernels each in-process entry must launch (rows 1-3 and 10 of the
+#: kernel table; merge_rows only where a sort merges small buckets)
+SORT_KERNELS = ("histogram", "fused_pass", "local_sort")
+PARTITION_KERNELS = ("histogram", "fused_pass")
+#: train_moe's two runs: to step 100, then the same command to step 200
+TRAIN_MOE_STEPS = (100, 200)
+#: the printed checks every entry's lines must hold true
+FLAG_RE = (r"(?:\bok=|perm ok=|sorted=|pairs move together: |f32: )"
+           r"(True|False)")
+PROBE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def load_entry(rel):
+    """The entry point at ``rel`` (a script, not a package module) as a
+    module, its ``main`` not run."""
+    import importlib.util
+    name = "entry_" + os.path.splitext(os.path.basename(rel))[0]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE,
+                                                                     rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_entry(torch, label, fn, kernels):
+    """``fn()`` with the launch counters at 0 and under the launch
+    recorder, its printed lines captured (and passed on): fails unless it
+    ran, launched each of ``kernels`` at least once, launched no plain
+    version, and the counters agree with the recorder.  Returns (its
+    result, its text, its record)."""
+    import contextlib
+    import io
+    import traceback
+    from repro_torch.analysis.trace import recording
+    from repro_torch.kernels import COUNTS, reset_counts
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with recording() as rec, contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+    except Exception as exc:
+        sys.stdout.write(buf.getvalue())
+        raise Failure(f"examples: {label} failed: {type(exc).__name__}: "
+                      f"{exc}\n{traceback.format_exc()[-2000:]}")
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    launches = {k: COUNTS[k] for k in ANALYSIS_KERNELS}
+    recorded = rec.counts()
+    plain = sum(r.plain for r in rec.records)
+    need(plain == 0, f"examples: {label} ran {plain} plain versions")
+    for key, name in ANALYSIS_KERNELS.items():
+        need(launches[key] == recorded.get(name, 0),
+             f"examples: {label}: {key} counted {launches[key]}, recorded "
+             f"{recorded.get(name, 0)}")
+    need(all(launches[k] > 0 for k in kernels),
+         f"examples: {label} did not launch all of {kernels}: {launches}")
+    return out, text, {"seconds": seconds, "launches": launches,
+                       "plain_launches": plain}
+
+
+def flags_true(label, text, at_least):
+    """Every printed ``ok=`` / ``perm ok=`` / ``sorted=`` / ``pairs move
+    together`` / ``f32:`` value is True, and there are ``at_least``."""
+    import re
+    vals = re.findall(FLAG_RE, text)
+    need(len(vals) >= at_least and all(v == "True" for v in vals),
+         f"examples: {label} printed {vals}, expected {at_least}+ True")
+    return len(vals)
+
+
+def merged_artifacts(src_dirs, out):
+    """The dry run's per-mesh artifact directories as one: every cell's
+    file, and one ``summary.json`` of all their cells."""
+    import glob
+    import shutil
+    os.makedirs(out)
+    summary = []
+    for d in src_dirs:
+        for path in glob.glob(os.path.join(d, "*.json")):
+            if path.endswith("summary.json"):
+                with open(path) as f:
+                    summary += json.load(f)
+            else:
+                shutil.copy(path, out)
+    with open(os.path.join(out, "summary.json"), "w") as f:
+        json.dump(summary, f)
+    return summary
+
+
+def check_tables(text, cells):
+    """Each ``ok`` cell appears once in its mesh's dry-run table, and each
+    ``ok`` pod cell once in the baseline roofline table."""
+    sections, title = {}, None
+    for line in text.splitlines():
+        if line.startswith("### "):
+            title = line[4:]
+            sections[title] = []
+        elif title is not None and line.startswith("| "):
+            sections[title].append(line)
+    found = {}
+    for c in cells:
+        if not c.get("ok"):
+            continue
+        row = f"| {c['arch']} | {c['shape']} | "
+        want = [t for t in sections if t.startswith(
+            f"Dry-run — {c['mesh']} mesh")]
+        if c["mesh"] == "pod":
+            want += [t for t in sections if t.startswith(
+                "Roofline — baseline")]
+        need(want, f"examples: no table for {c['mesh']}: {list(sections)}")
+        for t in want:
+            hits = sum(line.startswith(row) for line in sections[t])
+            need(hits == 1, f"examples: {c['mesh']}/{c['shape']} appears "
+                 f"{hits} times in '{t}'")
+            found[t] = found.get(t, 0) + 1
+    return found
+
+
+def script_process(rel, args=(), cwd=HERE):
+    """A scripts/ entry in a process of its own (host work: the probe's
+    fake 512-rank group must not meet this process's groups)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    return subprocess.Popen([sys.executable, os.path.join(HERE, rel),
+                             *args], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_process(label, proc, timeout):
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise Failure(f"examples: {label} ran past {timeout} s")
+    sys.stdout.write(out)
+    need(proc.returncode == 0, f"examples: {label} exited {proc.returncode}: "
+         f"{err.strip()[-2000:]}")
+    return out, time.perf_counter() - t0
+
+
+def _first_ids(module, attr, store):
+    """Wrap ``module.<attr>`` (a partition or dispatch whose ids come
+    first): keep a clone of its first call's ids and the positional
+    arguments after them."""
+    def wrap(_, fn):
+        def call(ids, *a, **kw):
+            if not store:
+                store.append((ids.clone(), a))
+            return fn(ids, *a, **kw)
+        return call
+    return _patched(module, [(attr, attr)], wrap)
+
+
+def examples_phase(torch, np, dev, reps, dryrun_dir=None):
+    """The seven user-facing entry points, each as a user runs it, at the
+    reference's sizes: ``torch_smoke_sort``, ``torch_quickstart``,
+    ``torch_distributed_sort`` (``LocalMesh(8)``), ``torch_serve_decode``
+    and ``torch_train_moe`` (the 100M config, to step 100, then the same
+    command to step 200, resumed from its step-100 checkpoint in a
+    temporary directory) in this process, each counted and recorded: the
+    CUDA kernels launched, no plain version; every printed ``ok`` true;
+    ``torch_probe_multipod`` (host work, its own process): ``PROBE OK``
+    and each of the five collective kinds; ``torch_make_experiments_
+    tables`` on the dry run's artifacts (``dryrun_dir``: the launch
+    phase's, one directory per mesh; None: the dry run is started here,
+    beside the entries): every ``ok`` Qwen3 cell once per table.  Then the
+    histogram and the fused pass are held to their plain versions at the
+    shapes these entries gave them: ``serve_decode``'s admission partition
+    and the first MoE dispatch of ``train_moe``'s step 1."""
+    import re
+    import tempfile
+    from repro_torch.core import segmented
+    from repro_torch.models import moe
+    from repro_torch.serve import engine as serve_engine
+    tmp = tempfile.TemporaryDirectory()
+    t_phase = time.perf_counter()
+    procs = []
+    try:
+        if dryrun_dir is None:
+            dry = start_dryrun(tmp.name)
+            procs += dry[0]
+            dryrun_dir = tmp.name
+        probe = script_process("scripts/torch_probe_multipod.py")
+        procs.append(probe)
+        entries, total = {}, {k: 0 for k in ANALYSIS_KERNELS}
+
+        def add(label, rec, **numbers):
+            entries[label] = dict(rec, **numbers)
+            for k in total:
+                total[k] += rec["launches"][k]
+
+        smoke = load_entry("scripts/torch_smoke_sort.py")
+        stats, text, rec = run_entry(torch, "smoke_sort",
+                                     lambda: smoke.run(), SORT_KERNELS)
+        need("SMOKE OK" in text and "LSD ok" in text,
+             "examples: smoke_sort did not print SMOKE OK")
+        add("smoke_sort", rec, ok_lines=flags_true("smoke_sort", text, 7),
+            counting_passes={k: s.counting_passes for k, s in stats.items()
+                             if s is not None},
+            local_sort={k: s.used_local_sort for k, s in stats.items()
+                        if s is not None})
+
+        quick = load_entry("examples/torch_quickstart.py")
+        stats, text, rec = run_entry(torch, "quickstart",
+                                     lambda: quick.run(), SORT_KERNELS)
+        need("lsd(d=5) agrees with hybrid" in text,
+             "examples: quickstart's LSD line is missing")
+        add("quickstart", rec, ok_lines=flags_true("quickstart", text, 3),
+            counting_passes={k: s.counting_passes for k, s in stats.items()},
+            local_sort={k: s.used_local_sort for k, s in stats.items()})
+
+        dsort = load_entry("examples/torch_distributed_sort.py")
+        res, text, rec = run_entry(torch, "distributed_sort",
+                                   lambda: dsort.run(), SORT_KERNELS)
+        cases = {}
+        for name, (out, _, st) in res.items():
+            valid = st.valid.cpu().numpy()
+            cases[name] = {
+                "attempts": int(st.exchange_attempts[0]),
+                "overflow": bool(st.overflow.any()),
+                "shard_fill": float(valid.mean() * len(valid) / out.shape[0])}
+            need(not cases[name]["overflow"],
+                 f"examples: distributed_sort {name} overflowed")
+        del res
+        add("distributed_sort", rec,
+            ok_lines=flags_true("distributed_sort", text, 5), cases=cases)
+        torch.cuda.empty_cache()
+
+        serve = load_entry("examples/torch_serve_decode.py")
+        adm = []
+        saved = _first_ids(serve_engine, "counting_partition", adm)
+        try:
+            served, text, rec = run_entry(torch, "serve_decode",
+                                          lambda: serve.run(),
+                                          PARTITION_KERNELS)
+        finally:
+            _restore(serve_engine, saved)
+        gen = [r for b in served for r in b]
+        need(len(gen) == 10 and all(
+            len(r.generated) == r.max_new_tokens for r in gen),
+             "examples: serve_decode served the wrong requests or lengths")
+        add("serve_decode", rec, batches=len(served),
+            generated_tokens=sum(len(r.generated) for r in gen))
+
+        train = load_entry("examples/torch_train_moe.py")
+        ckpt = os.path.join(tmp.name, "train_moe_torch")
+        parts, disp = [], []
+        for steps in TRAIN_MOE_STEPS:
+            saved = _first_ids(moe, "capacity_dispatch", disp)
+            try:
+                got, text, rec = run_entry(
+                    torch, f"train_moe_{steps}",
+                    lambda s=steps: train.run(steps=s, ckpt=ckpt),
+                    PARTITION_KERNELS)
+            finally:
+                _restore(moe, saved)
+            ran = steps - got["start"]
+            need(ran > 0 and len(got["losses"]) == ran and all(
+                np.isfinite(v) for v in got["losses"].values()),
+                 f"examples: train_moe to {steps}: losses {got['losses']}")
+            parts.append((steps, got, text, rec))
+        need("[trainer] resumed from step" not in parts[0][2] and
+             f"[trainer] resumed from step {TRAIN_MOE_STEPS[0]}"
+             in parts[1][2] and parts[1][1]["start"] == TRAIN_MOE_STEPS[0],
+             "examples: train_moe did not resume from its checkpoint")
+        for steps, got, text, rec in parts:
+            ran = steps - got["start"]
+            # the trainer's own average at its last log line: the steps
+            # without the final wait for the last checkpoint's writer
+            logged = re.findall(r"\[trainer\] step \d+ .* (\d+) ms/step",
+                                text)
+            add(f"train_moe_{steps}", rec, params=got["params"],
+                start=got["start"], steps=ran,
+                loss=got["losses"][steps],
+                ms_per_step=got["seconds"] / ran * 1e3,
+                logged_ms_per_step=int(logged[-1]) if logged else None)
+        del parts
+        torch.cuda.empty_cache()
+
+        # the two kernels against their plain versions at these entries'
+        # shapes (uncounted runs)
+        need(len(adm) == 1 and len(disp) == 1,
+             f"examples: captured {len(adm)} admission partitions and "
+             f"{len(disp)} dispatches")
+        ids, (buckets,) = adm[0][0], adm[0][1][:1]
+        kernels = {}
+        rec = first_pass(torch, lambda: segmented.counting_partition(
+            ids, buckets))
+        hist, fres = serve_kernels(torch, rec, ids, buckets, reps,
+                                   "examples_admission")
+        launches = entries["serve_decode"]["launches"]
+        kernels["histogram_examples_admission"] = (
+            hist, launches["histogram"])
+        kernels["fused_pass_examples_admission"] = (
+            fres, launches["fused_pass"])
+        ids, (e, capacity) = disp[0][0], disp[0][1][:2]
+        rec = first_pass(torch, lambda: segmented.capacity_dispatch(
+            ids, e, capacity))
+        hist, fres = serve_kernels(torch, rec, ids, e, reps,
+                                   "examples_train_moe_dispatch")
+        runs = [entries[f"train_moe_{s}"]["launches"]
+                for s in TRAIN_MOE_STEPS]
+        kernels["histogram_examples_dispatch"] = (
+            hist, sum(r["histogram"] for r in runs))
+        kernels["fused_pass_examples_dispatch"] = (
+            fres, sum(r["fused_pass"] for r in runs))
+        shapes = {"admission": [int(adm[0][0].numel()), int(buckets)],
+                  "dispatch": [int(ids.numel()), int(e), int(capacity)]}
+        del rec, ids, adm, disp
+
+        # the probe (started first, on the host)
+        text, probe_s = finish_process("probe_multipod", probe, 600)
+        need("PROBE OK" in text, "examples: the probe did not print PROBE OK")
+        counts = {}
+        for line in text.splitlines():
+            kind = line.split(" ")[0]
+            if kind in PROBE_KINDS:
+                counts[kind] = int(line.split(" ")[1])
+        need(all(counts.get(k, 0) >= 1 for k in PROBE_KINDS),
+             f"examples: the probe counted {counts}")
+        entries["probe_multipod"] = {"collectives": counts}
+
+        # the tables, from the dry run's cells of both meshes
+        if dryrun_dir == tmp.name:
+            finish_dryrun(*dry, tmp.name)
+        cells = merged_artifacts(
+            [os.path.join(dryrun_dir, m) for m in DRYRUN_MESHES],
+            os.path.join(tmp.name, "tables", "dryrun"))
+        tproc = script_process("scripts/torch_make_experiments_tables.py",
+                               ("dryrun",), cwd=os.path.join(tmp.name,
+                                                             "tables"))
+        procs.append(tproc)
+        _, tables_s = finish_process("make_experiments_tables", tproc, 300)
+        with open(os.path.join(tmp.name, "tables", "artifacts",
+                               "tables_torch.md")) as f:
+            found = check_tables(f.read(), cells)
+        need(sum(1 for c in cells if c.get("ok")) == len(
+            [(m, s) for m in DRYRUN_MESHES for s in DRYRUN_SHAPES]),
+             f"examples: {len(cells)} dry-run cells")
+        entries["make_experiments_tables"] = {"seconds": tables_s,
+                                              "rows": found}
+    finally:
+        stop(procs)
+        tmp.cleanup()
+    res = {"phase": "examples", "seconds": time.perf_counter() - t_phase,
+           "entries": entries, "launches": total, "kernel_shapes": shapes}
+    emit(res)
+    return dict(res, kernels=kernels)
+
+
+def examples_rows(res):
+    """The examples phase's rows of the kernels line: the histogram and
+    the fused pass at the admission and MoE-dispatch shapes its entries
+    gave them."""
+    src = "src/repro_torch/kernels/csrc/"
+    return [dict(name=name, route="cuda",
+                 source=src + ("histogram.cu" if name.startswith("histogram")
+                               else "fused_pass.cu"),
+                 replaces=("src/repro/kernels/histogram.py:28"
+                           if name.startswith("histogram")
+                           else "src/repro/kernels/fused.py:129"),
+                 launches=launches, **_k(r), bound_by="bytes",
+                 library_ms=r["library_ms"])
+            for name, (r, launches) in res["kernels"].items()]
+
+
+def run_examples_only(torch, np, log2n, reps, dev):
+    """``--only examples``: the phase (with its own dry run), then rows
+    1-3 and 10 of the kernels line held to their plain versions."""
+    res = examples_phase(torch, np, dev, reps)
+    return (main_path_rows(torch, np, log2n, reps, dev, res["launches"])
+            + examples_rows(res))
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3704,6 +4129,9 @@ def run(args) -> int:
         return finish(torch, run_launch(torch, np, args.reps, dev))
     if args.only == "analysis":
         return finish(torch, run_analysis_only(torch, np, args.log2n,
+                                               args.reps, dev))
+    if args.only == "examples":
+        return finish(torch, run_examples_only(torch, np, args.log2n,
                                                args.reps, dev))
 
     # the serve phase: Qwen3-30B-A3B at full width through ServeEngine (its
@@ -3921,9 +4349,17 @@ def run(args) -> int:
     analysis = analysis_process(args.log2n)
 
     # the launch phase: the one-rank NCCL mesh step, compressed_psum and
-    # the dry run (its own counted runs)
-    launch_rows = run_launch(torch, np, args.reps, dev)
-    kernels += serve_rows + train_rows + launch_rows
+    # the dry run (its own counted runs), whose artifacts the examples
+    # phase's tables script reads
+    import tempfile
+    with tempfile.TemporaryDirectory() as dry_dir:
+        launch_rows = run_launch(torch, np, args.reps, dev, keep=dry_dir)
+        kernels += serve_rows + train_rows + launch_rows
+        # the examples phase: the seven user-facing entry points (their
+        # own counted runs)
+        examples = examples_phase(torch, np, dev, args.reps,
+                                  dryrun_dir=dry_dir)
+        kernels += examples_rows(examples)
     emit({"phase": "summary", "main_path": "uint32_uniform_kv",
           "host_reads": launches["host_reads"], "sort_ms": main["ms"],
           "torch_sort_ms": main["torch_sort_ms"], "d9_sort_ms": d9["ms"],
@@ -3938,7 +4374,8 @@ def run(args) -> int:
           "analysis_sweep_s": analysis["sweep_s"],
           "analysis_main_path_s": analysis["main_path"]["seconds"],
           "train_step_ms": TRAIN_SUMMARY.get("step_ms"),
-          "train_tokens_per_s": TRAIN_SUMMARY.get("tokens_per_s")})
+          "train_tokens_per_s": TRAIN_SUMMARY.get("tokens_per_s"),
+          "examples_s": examples["seconds"]})
     return finish(torch, kernels)
 
 
@@ -3969,12 +4406,13 @@ def run_train(torch, np, reps, dev):
             for name, (res, launches) in train["kernels"].items()]
 
 
-def run_launch(torch, np, reps, dev):
+def run_launch(torch, np, reps, dev, keep=None):
     """The launch phase, its launches checked, the card emptied after it;
-    returns its rows of the kernels line."""
+    returns its rows of the kernels line (``keep``: see
+    :func:`launch_phase`)."""
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    rows = launch_phase(torch, np, reps, dev)
+    rows = launch_phase(torch, np, reps, dev, keep=keep)
     need(all(r["launches"] > 0 for r in rows),
          f"a kernel of the mesh path was not launched: {rows}")
     torch.cuda.empty_cache()
@@ -4006,7 +4444,7 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=3,
                         help="timed repetitions per measurement")
     parser.add_argument("--only", choices=("serve", "train", "launch",
-                                           "analysis"),
+                                           "analysis", "examples"),
                         help="run only this phase (a quick check)")
     args = parser.parse_args(argv)
     try:

@@ -1,8 +1,8 @@
 """Rules every slice of the port is held to.
 
-* No module under ``src/repro_torch/``, not ``chip_smoke.py`` and no
-  ``scripts/torch_*.py`` probe imports
-  ``jax`` or the reference package ``repro`` (checked on the source's AST
+* No module under ``src/repro_torch/``, not ``chip_smoke.py``, no
+  ``scripts/torch_*.py`` script and no ``examples/torch_*.py`` example
+  imports ``jax`` or the reference package ``repro`` (checked on the source's AST
   and on ``sys.modules`` after importing the port in a fresh interpreter).
 * No quiet move to the CPU: a numpy input with no ``device=`` goes to the
   GPU, and without one it raises; a kernel wrapper given a tensor that is
@@ -29,7 +29,8 @@ BANNED = {"jax", "jaxlib", "repro"}
 
 def _port_sources():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] +
-            sorted((ROOT / "scripts").glob("torch_*.py")))
+            sorted((ROOT / "scripts").glob("torch_*.py")) +
+            sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path):
