@@ -191,7 +191,13 @@ def bitonic_sort_rows_ref(keys: torch.Tensor, values=None):
         key = torch.where(mag > exp, torch.iinfo(b.dtype).max,
                           torch.where(zero, 0, key))
     order = torch.sort(key, dim=1, stable=True).indices
-    out = torch.gather(b, 1, order).view(keys.dtype)
+    out = torch.gather(b, 1, order)
+    if kind == "bf16":
+        # XLA sorts bf16 on the CPU as float32 and converts back: every
+        # NaN comes out as the quiet NaN of its sign, 0x7FC0 / 0xFFC0
+        out = torch.where((out & 0x7FFF) > 0x7F80, (out & -0x8000) | 0x7FC0,
+                          out)
+    out = out.view(keys.dtype)
     if values is None:
         return out
     return out, torch.gather(values, 1, order)

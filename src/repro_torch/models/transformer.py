@@ -35,6 +35,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed._functional_collectives as funcol
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
@@ -226,12 +227,28 @@ def _block_fwd(bp, x, cfg, window, positions, engine=None, sub=_call):
     return _seq_shard(x, cfg), aux
 
 
+def _embed_rows(embed, ids):
+    """The rows of the table ``embed`` (V, d) at the token ``ids``.
+
+    ``F.embedding``'s backward adds each row's gradient contributions in a
+    fixed order (on the CPU each thread owns a range of rows and walks the
+    ids in order; on CUDA the ids are sorted and each row's segment
+    summed), so a training step repeats bit for bit at any thread count.
+    A DTensor table sharded over its vocab dim keeps the index form:
+    DTensor's embedding backward fails on it, and the index form's CPU
+    backward (``index_put`` with accumulate) adds in thread order."""
+    ids = torch.as_tensor(ids, device=embed.device).long()
+    if isinstance(embed, DTensor) and any(p.is_shard(0)
+                                          for p in embed.placements):
+        return embed[ids]
+    return F.embedding(ids, embed)
+
+
 def _embed_inputs(params, cfg, batch):
     """batch: {"tokens": (B,S)} (+ "patches": (B,P,d) for vlm); numpy
     inputs go to the parameters' device."""
     embed = params["embed"]
-    tokens = torch.as_tensor(batch["tokens"], device=embed.device)
-    x = embed[tokens.long()]
+    x = _embed_rows(embed, batch["tokens"])
     if cfg.frontend == "vision_patches":
         patches = torch.as_tensor(batch["patches"], device=embed.device)
         x = torch.cat([patches.to(x.dtype), x], dim=1)    # precomputed stub
@@ -479,8 +496,7 @@ def decode_step(params, cfg, token, cache: DecodeCache, *,
                 engine: Optional[str] = None):
     """token: (B, 1) int -> (logits (B, 1, V), updated cache).  The given
     cache is left as it was."""
-    embed = params["embed"]
-    x = embed[torch.as_tensor(token, device=embed.device).long()]
+    x = _embed_rows(params["embed"], token)
     n = cfg.n_layers
     fields = [cache.kv_k, cache.kv_v, cache.ssm_state, cache.ssm_conv]
     per_layer = [f if f is not None else (None,) * n for f in fields]

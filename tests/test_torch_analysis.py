@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.analysis import contracts as rcontracts  # noqa: E402
 from repro.analysis import expr as rexpr  # noqa: E402

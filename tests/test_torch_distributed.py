@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from _multidev import run_multidev  # noqa: E402

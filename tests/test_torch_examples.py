@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from _multidev import PREAMBLE  # noqa: E402
@@ -252,21 +253,7 @@ def test_train_moe_config_and_params_equal_reference(train_moe, small):
     assert port.param_count(init_params(got, device=device)) == n_ref
 
 
-@pytest.fixture
-def deterministic():
-    """Deterministic algorithms while the test runs.  On the CPU the
-    backward of the embedding lookup (``index_put`` with accumulate) adds
-    the gradients of repeated tokens in whatever order its threads reach
-    them, so two runs of one step may differ in the last bits; the flag
-    makes that sum ordered."""
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    yield
-    torch.use_deterministic_algorithms(prev)
-
-
-def test_train_moe_resumes_bit_equal(train_moe, tmp_path, capsys,
-                                     deterministic):
+def test_train_moe_resumes_bit_equal(train_moe, tmp_path, capsys):
     """50 steps, then the same command to 52 resumes from the step-50
     checkpoint; its steps 51-52 equal an uninterrupted 52-step run's."""
     _, port = train_moe

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.core import faults as jfaults  # noqa: E402
 from repro.core.outofcore import oocsort as j_oocsort  # noqa: E402

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.core import SortConfig as JConfig  # noqa: E402
 from repro.core import hybrid_sort as j_sort  # noqa: E402
@@ -205,25 +206,3 @@ def test_8bit_keys_full_digit_parity(rng, dtype):
     x = rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max, 3000,
                      dtype=dtype, endpoint=True)
     _check(x, np.arange(3000, dtype=np.int32), TCFG)
-
-
-@pytest.mark.parametrize("d", [9, 10, 12, 16])
-@pytest.mark.parametrize("keys", ["uniform", "and3"])
-@pytest.mark.parametrize("with_values", [False, True])
-def test_wide_digit_parity(rng, d, keys, with_values):
-    """Digits of 9 bits (r = 512, the widest of the fused pass's look-back
-    kernel; Kimi K2's 384 experts make one such pass), 10 bits (the wide
-    variant's narrowest), 12 and 16 bits (the widest SortConfig takes):
-    several passes on uniform keys and on AND-3 keys, keys / values / stats
-    equal to the reference.  At d = 16 the plan's (a_max, r) tables hold
-    n / (∂̂ + 1) * 65536 entries, so n is small and ∂̂ = 1: pairs of keys
-    that share a top digit still make a second pass."""
-    lt, mt, n = {9: (16, 8, 6000), 16: (1, 1, 1000)}.get(d, (2, 1, 12000))
-    cfg = JConfig(d=d, kpb=64, local_threshold=lt, merge_threshold=mt)
-    x = rng.integers(0, 2**32, n, dtype=np.uint32)
-    if keys == "and3":
-        for _ in range(3):
-            x &= rng.integers(0, 2**32, n, dtype=np.uint32)
-    stats = _check(x, np.arange(n, dtype=np.int32) if with_values else None,
-                   cfg)
-    assert stats[0] >= 2                          # executed counting passes

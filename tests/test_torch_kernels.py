@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.core import plan as jplan  # noqa: E402
 from repro.kernels import fused as jfused  # noqa: E402

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.core import SortConfig as JConfig  # noqa: E402
 from repro.core import hybrid_sort as j_sort  # noqa: E402

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.kernels import merge as jmerge  # noqa: E402
 from repro.kernels.fused import pad_length  # noqa: E402

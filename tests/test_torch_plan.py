@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.core import hybrid as jhybrid  # noqa: E402
 from repro.core import model as jmodel  # noqa: E402

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.core import plan as jplan  # noqa: E402
 from repro.core import segmented as jseg  # noqa: E402
