@@ -1100,11 +1100,12 @@ def profile_case(torch, keys, with_values):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
+    spans = _annotations(prof)
     rows = []
     for ev in prof.key_averages():
         # device-side entries only (kernels, memsets, copies): a CPU op's
         # device time is the sum of its kernels, which are listed as well
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or ev.key in spans:
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
@@ -2320,7 +2321,7 @@ def serve_profile(torch, eng, tok, cache):
     finally:
         for mod, sv in saved:
             _restore(mod, sv)
-    events = _device_intervals(prof)
+    events = _device_intervals(prof, keep=labels)
     ranges = {lb: [(a, b) for n, a, b in events if n == lb] for lb in labels}
     work = [(n, a, b) for n, a, b in events if n not in ranges]
     busy = _measure(_union([(a, b) for _, a, b in work])) / 1e3
@@ -2704,7 +2705,7 @@ def train_profile(torch, tr, state):
             wall = (time.perf_counter() - t0) * 1e3
     finally:
         _restore(moe, saved)
-    events = _device_intervals(prof)
+    events = _device_intervals(prof, keep=("train.dispatch",))
     spans = _union([(a, b) for n, a, b in events if n == "train.dispatch"])
     work = [(n, a, b) for n, a, b in events if n != "train.dispatch"]
     busy = _measure(_union([(a, b) for _, a, b in work])) / 1e3
@@ -2978,12 +2979,23 @@ def check_sorted(torch, label, keys, out_k, out_v):
     torch.cuda.empty_cache()
 
 
-def _device_intervals(prof):
-    """(name, start_us, end_us) of every device-side event of a trace."""
+def _annotations(prof) -> set:
+    """The names of a trace's ``record_function`` spans.  With CUDA
+    activity on, each span also has a device-side copy, which is no device
+    work: device time leaves those names out."""
+    return {ev.name for ev in prof.events()
+            if getattr(ev, "is_user_annotation", False)}
+
+
+def _device_intervals(prof, keep=()):
+    """(name, start_us, end_us) of every device-side event of a trace: its
+    kernels, copies and memsets, and the device-side copies of the spans
+    named in ``keep``."""
     from torch.autograd import DeviceType
+    drop = _annotations(prof) - set(keep)
     out = []
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and ev.name not in drop:
             out.append((ev.name, ev.time_range.start, ev.time_range.end))
     return out
 

@@ -162,9 +162,13 @@ def profiled(name, fn, reps=7):
         fn()
         e.record()
         e.synchronize()
+    # a record_function span's device-side copy is no device work
+    spans = {ev.name for ev in prof.events()
+             if getattr(ev, "is_user_annotation", False)}
     rows = sorted(((getattr(ev, "self_device_time_total", 0) / 1e3, ev.count,
                     ev.key[:60]) for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.key not in spans), reverse=True)
     return {f"{name}_ms": times, f"{name}_median_ms": statistics.median(times),
             "profiled_wall_ms": s.elapsed_time(e),
             "device_busy_ms": sum(r[0] for r in rows),

@@ -11,6 +11,10 @@ force a rebuild.  ``build_all`` starts one ``nvcc`` per source at once.
 ``COUNTS`` holds one plain integer per kernel.  A wrapper adds one exactly
 where it launches its kernel, so a run can show that it went through the
 kernel; ``host_reads`` counts the device-to-host reads of the sort loop.
+Its keys are fixed: the benchmark (``sortbench``) sums every key but
+``host_reads`` into the kernel launches it holds to the profiler's count.
+Counts of the sort's work (records per pass, records handed to the local
+sort) are attributes of the spans in ``repro_torch.core.spans``.
 
 ``RECORDER`` is the launch recorder of ``repro_torch.analysis.trace`` while
 one is recording, else None: every wrapper tests it once, where it has
