@@ -7,8 +7,11 @@ The algorithm is the reference's, step for step:
     tiny sub-buckets merge while their total stays below ∂ (R3), buckets at
     or below ∂̂ become done and are finished by one local sort (R1);
   * the loop exits when no active bucket remains or the digits run out;
-  * bucket state is dense per key (segment ids + done flags) and every
-    derived table comes from ``core.plan`` at the reference's static sizes.
+  * every derived table comes from ``core.plan`` at the reference's static
+    sizes.  The plain-torch engines keep bucket state dense per key
+    (segment ids + done flags); the kernel engine keeps it as a
+    ``plan.SegmentTable`` of at most s_max (start, size, done) rows, so no
+    step of its plan reads or writes per key.
 
 Three engines give byte-identical results:
 
@@ -38,14 +41,15 @@ While a profiler records, a sort logs its spans in ``core.spans.LOG``:
 ``hybrid_sort`` (``n``, ``key_bits``, ``value_bytes``, ``engine``) holds
 ``hybrid_sort.prologue``, the read before the loop, one
 ``hybrid_sort.pass`` per pass the loop enters (``p``, ``executed``,
-``active_records``: the records of its active buckets), the finishing
+``active_records``: the records of its active buckets; on the kernel
+engine ``segments``: the table's buckets after the pass), the finishing
 read, ``hybrid_sort.local_sort`` (``records``: the records of done
 buckets) and ``hybrid_sort.epilogue``; a pass holds ``hybrid_sort.plan``,
 ``hybrid_sort.scatter`` unless elided, and the read that ends it.  The
 counts are tallies of the plan's own tables (``ActiveSegments.size``, the
-local sort's bucket sizes): one reduction each, enqueued only while a
-profiler records.  With none recording the sort runs no op and makes no
-read for its spans.
+segment table, the local sort's bucket sizes): one reduction each,
+enqueued only while a profiler records.  With none recording the sort runs
+no op and makes no read for its spans.
 """
 from __future__ import annotations
 
@@ -56,8 +60,7 @@ import torch
 from repro_torch.core import bijection, interop, model, plan, spans
 from repro_torch.core.ranks import resolve_engine, stable_partition_dest
 from repro_torch.kernels import _build, fused
-from repro_torch.kernels.ops import (local_sort_class_plan,
-                                     segmented_local_sort, static_nonzero)
+from repro_torch.kernels.ops import local_sort_class_plan, segmented_local_sort
 
 _I32 = torch.int32
 _MOVABLE = {torch.uint16: torch.int16, torch.uint32: torch.int32,
@@ -109,14 +112,13 @@ def _skip_predicate(single: bool, nxt_valid: bool, p: int, nd: int) -> bool:
     return single and (nxt_valid or p >= nd - 1)
 
 
-def _bookkeeping(seg_id, done, asegs, hist, cfg):
+def _group_tables(asegs, hist, cfg):
+    """``(gstart, gdone, dest_base)`` of a pass: R3's merged groups and the
+    first destination of each (active segment, digit) sub-bucket."""
     gstart, gdone = plan.merge_rows(hist, cfg.local_threshold,
                                     cfg.merge_threshold)
     excl = torch.cumsum(hist, 1, dtype=_I32) - hist
-    dest_base = asegs.base[:, None] + excl                   # (a_max, r)
-    new_seg, new_done = plan.apply_pass_bookkeeping(
-        seg_id, done, asegs, hist, gstart, gdone, dest_base)
-    return dest_base, new_seg, new_done
+    return gstart, gdone, asegs.base[:, None] + excl         # (a_max, r)
 
 
 def _counting_pass_torch(ukeys, leaves, seg_id, done, p, *, k, d, lo, a_max,
@@ -134,7 +136,8 @@ def _counting_pass_torch(ukeys, leaves, seg_id, done, p, *, k, d, lo, a_max,
         hist = torch.zeros(a_max * r + 1, dtype=_I32, device=ukeys.device)
         hist.index_add_(0, comp, torch.ones_like(comp))
         hist = hist[:a_max * r].reshape(a_max, r)
-        _, new_seg, new_done = _bookkeeping(seg_id, done, asegs, hist, cfg)
+        new_seg, new_done = plan.apply_pass_bookkeeping(
+            seg_id, done, asegs, hist, *_group_tables(asegs, hist, cfg))
 
     executed = not skip_fn(hist)
     spans.note(executed=executed)
@@ -171,21 +174,13 @@ def _local_sort(ukeys, leaves, seg_id, done):
     return ukeys[perm], [v[perm] for v in leaves]
 
 
-def _local_sort_kernel(keys, leaves, seg_id, done, *, s_max, row_len,
+def _local_sort_kernel(keys, leaves, table: plan.SegmentTable, *, row_len,
                        classes):
-    """Kernel-engined finish: done buckets sorted in place in ``keys`` and
-    the value ``leaves`` (views of the ping-pong buffers), one launch per
-    size class."""
-    n = keys.shape[0]
-    boundary = torch.ones(n, dtype=torch.bool, device=keys.device)
-    boundary[1:] = seg_id[1:] != seg_id[:-1]
-    starts = static_nonzero(boundary, s_max, n)
-    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
-    sizes = ends - starts
-    sortable = (done[torch.clamp(starts, 0, n - 1).to(torch.int64)] &
-                (starts < n))
-    spans.tally("records", sizes, where=sortable)
-    segmented_local_sort(keys, starts, sizes, sortable, row_len,
+    """Kernel-engined finish: the table's done buckets sorted in place in
+    ``keys`` and the value ``leaves`` (views of the ping-pong buffers), one
+    launch per size class."""
+    spans.tally("records", table.size, where=table.done)
+    segmented_local_sort(keys, table.start, table.size, table.done, row_len,
                          classes=classes, leaves=leaves)
     return keys, leaves
 
@@ -234,16 +229,19 @@ def _hybrid_sort_bits(keys, leaves, cfg: model.SortConfig,
         nd = model.num_digits(max(k - lo, 0), d)
         if max_passes is not None:
             nd = min(nd, max_passes)
-        done = torch.full((n,), n <= cfg.local_threshold, dtype=torch.bool,
-                          device=dev)
-        seg = torch.zeros(n, dtype=_I32, device=dev)
         if engine == "kernel":
+            table = plan.segment_table(n, model.max_total_buckets(n, cfg),
+                                       n <= cfg.local_threshold, dev)
             g_max = plan.max_region_blocks(n, cfg.kpb, a_max)
             (ck, cv), (ak, av) = fused.make_ping_pong(ukeys, leaves, cfg.kpb)
             w0 = min(d, max(k - lo, 1))
             hist_cur = fused.initial_histogram(ck, n, max(k - w0, 0), w0, r,
                                                a_max, cfg.kpb)
             hist_nxt = torch.zeros_like(hist_cur)
+        else:
+            done = torch.full((n,), n <= cfg.local_threshold,
+                              dtype=torch.bool, device=dev)
+            seg = torch.zeros(n, dtype=_I32, device=dev)
 
     if engine == "kernel":
         loop = (None if _build.RECORDER is None else
@@ -251,7 +249,7 @@ def _hybrid_sort_bits(keys, leaves, cfg: model.SortConfig,
 
         def exit_test():
             with _host_read():
-                return torch.stack([(~done).any(),
+                return torch.stack([plan.table_any_active(table),
                                     _single_digit(hist_cur)]).tolist()
 
         any_active, single = exit_test() if p < nd else (False, False)
@@ -260,9 +258,11 @@ def _hybrid_sort_bits(keys, leaves, cfg: model.SortConfig,
                 if loop is not None:
                     loop.step()
                 with spans.span("hybrid_sort.plan"):
-                    asegs = plan.active_segments(seg, done, a_max)
-                    dest_base, new_seg, new_done = _bookkeeping(
-                        seg, done, asegs, hist_cur, cfg)
+                    asegs, rows = plan.table_active(table, n, a_max)
+                    gstart, gdone, dest_base = _group_tables(asegs, hist_cur,
+                                                             cfg)
+                    new_table = plan.advance_table(table, rows, gstart, gdone,
+                                                   dest_base, n)
                     nsid = plan.next_active_table(hist_cur,
                                                   cfg.local_threshold, a_max)
                     skip = adaptive and _skip_predicate(single, nxt_valid, p,
@@ -279,6 +279,7 @@ def _hybrid_sort_bits(keys, leaves, cfg: model.SortConfig,
                             asegs.base, asegs.size, n, cfg.kpb, g_max)
                 spans.note(executed=not skip)
                 spans.tally("active_records", asegs.size)
+                spans.tally("segments", new_table.size > 0)
                 if not skip:
                     with spans.span("hybrid_sort.scatter"):
                         out = fused.fused_counting_pass(
@@ -291,7 +292,7 @@ def _hybrid_sort_bits(keys, leaves, cfg: model.SortConfig,
                         hist_nxt = out[3].reshape(a_max, r)
                         nxt_valid = p + 2 < nd
                     p_exec += 1
-                seg, done = new_seg, new_done
+                table = new_table
                 p += 1
                 any_active, single = (exit_test() if p < nd else
                                       (False, False))
@@ -299,6 +300,7 @@ def _hybrid_sort_bits(keys, leaves, cfg: model.SortConfig,
             loop.close()
         ukeys = ck[:n]
         leaves = [v[:n] for v in cv]
+        state, done = table, table.done
     else:
         def skip_fn(hist):
             if not adaptive:
@@ -323,6 +325,7 @@ def _hybrid_sort_bits(keys, leaves, cfg: model.SortConfig,
                 n_eld += int(not executed)
                 p += 1
                 any_active = exit_test() if p < nd else False
+        state = seg
 
     with _host_read():
         needs_local = bool(done.any().tolist())
@@ -330,21 +333,26 @@ def _hybrid_sort_bits(keys, leaves, cfg: model.SortConfig,
         with spans.span("hybrid_sort.local_sort"):
             if engine == "kernel":
                 ukeys, leaves = _local_sort_kernel(
-                    ukeys, leaves, seg, done,
-                    s_max=model.max_total_buckets(n, cfg),
-                    row_len=_local_row_len(n, cfg),
+                    ukeys, leaves, table, row_len=_local_row_len(n, cfg),
                     classes=local_sort_classes(n, cfg))
             else:
                 ukeys, leaves = _local_sort(ukeys, leaves, seg, done)
-    return ukeys, leaves, seg, (p_exec, needs_local, n_eld), cplan
+    return ukeys, leaves, state, (p_exec, needs_local, n_eld), cplan
 
 
-def _stats(seg: torch.Tensor, n: int, counters) -> SortStats:
+def _stats(state, n: int, counters) -> SortStats:
+    """The stats of a sort from its bucket state at exit: the kernel
+    engine's ``SegmentTable`` or the plain engines' segment ids."""
     p_exec, needs_local, n_eld = counters
     with _host_read():
-        sizes = torch.bincount(seg.to(torch.int64), minlength=n)
-        last, biggest = torch.stack([seg[-1].to(torch.int64) + 1,
-                                     sizes.max()]).tolist()
+        if isinstance(state, plan.SegmentTable):
+            count = (state.size > 0).sum()
+            sizes = state.size
+        else:
+            count = state[-1] + 1
+            sizes = torch.bincount(state.to(torch.int64), minlength=n)
+        last, biggest = torch.stack([count.to(torch.int64),
+                                     sizes.max().to(torch.int64)]).tolist()
     return SortStats(counting_passes=p_exec, used_local_sort=needs_local,
                      num_segments=last, max_segment=biggest,
                      elided_passes=n_eld)
@@ -409,12 +417,12 @@ def hybrid_sort(keys, values: Any = None,
         # torch cannot scatter or gather uint16/32/64: move their signed
         # twins
         leaves = [v.view(_MOVABLE.get(v.dtype, v.dtype)) for v in leaves]
-        ukeys, leaves, seg, counters, cplan = _hybrid_sort_bits(
+        ukeys, leaves, state, counters, cplan = _hybrid_sort_bits(
             keys, leaves, cfg, max_passes, engine, adaptive, compress,
             adaptive and narrow)
         with spans.span("hybrid_sort.epilogue"):
             leaves = [v.view(dt) for v, dt in zip(leaves, dtypes)]
-            stats = _stats(seg, n, counters) if return_stats else None
+            stats = _stats(state, n, counters) if return_stats else None
             if cplan is not None:
                 ukeys = bijection.unpack_ordered_bits(ukeys, cplan)
             out_keys = bijection.from_ordered_bits(ukeys, keys.dtype)

@@ -1,8 +1,16 @@
 """Pass plan: port of ``repro.core.plan`` as the sorts use it — digit
 windows (MSD and LSD), active-segment descriptors, block descriptor tables,
-R3 merge bookkeeping, the next-pass segment map, the positional
-segment/done updates after a pass, and ``single_pass_partition``, the one
-stable counting pass under ``segmented.counting_partition``.
+R3 merge bookkeeping, the next-pass segment map, the bucket-state updates
+after a pass, and ``single_pass_partition``, the one stable counting pass
+under ``segmented.counting_partition``.
+
+Bucket state takes two forms.  The plain engines (``argsort``, ``scan``)
+rank keys by (active segment, digit), so they keep it dense per key
+(segment ids + done flags: ``active_segments``,
+``apply_pass_bookkeeping``).  The kernel engine reads it only through
+tables of at most s_max rows, so it keeps a ``SegmentTable`` of one row
+per bucket (``segment_table``, ``table_active``, ``advance_table``) and
+no step of its plan reads or writes per key.
 
 Every table keeps the reference's static size (a_max, g_max, ...) so it
 compares with the reference entry for entry.  The ``jnp.nonzero(size=)``
@@ -33,6 +41,18 @@ class ActiveSegments(NamedTuple):
     size: torch.Tensor      # (a_max,) keys per active segment; 0 pad
     index: torch.Tensor     # (n,) compact active-segment id per key
     boundary: torch.Tensor  # (n,) bool: first key of any bucket
+    # (index and boundary are the plain engines' per-key arrays: None from
+    # a SegmentTable)
+
+
+class SegmentTable(NamedTuple):
+    """The kernel engine's bucket state: one row per bucket in position
+    order, s_max rows (``model.max_total_buckets``).  The buckets tile
+    [0, n); padding rows follow them with ``start == n``, ``size == 0`` and
+    ``done`` False."""
+    start: torch.Tensor  # (s_max,) int32 first key of the bucket
+    size: torch.Tensor   # (s_max,) int32 keys in the bucket
+    done: torch.Tensor   # (s_max,) bool: at most ∂̂ keys, for the local sort
 
 
 class RegionBlocks(NamedTuple):
@@ -83,7 +103,8 @@ def lsd_digit_window(pass_idx: int, k: int, d: int, lo: int = 0) -> tuple:
 
 def active_segments(seg_id: torch.Tensor, done: torch.Tensor,
                     a_max: int) -> ActiveSegments:
-    """Derive the active-segment descriptors from dense per-key state.
+    """Derive the active-segment descriptors from dense per-key state (the
+    plain engines').
 
     A bucket is done or active as a whole and segment ids never decrease
     along the keys, so an active segment ends where its id ends: its size
@@ -102,6 +123,86 @@ def active_segments(seg_id: torch.Tensor, done: torch.Tensor,
     size = torch.where(base < n, end - base, 0)
     return ActiveSegments(base=base, size=size, index=asid,
                           boundary=boundary)
+
+
+def segment_table(n: int, s_max: int, done: bool, device) -> SegmentTable:
+    """The table of one bucket [0, n), done when ``done`` (n ≤ ∂̂)."""
+    start = torch.full((s_max,), n, dtype=_I32, device=device)
+    start[0] = 0
+    size = torch.zeros(s_max, dtype=_I32, device=device)
+    size[0] = n
+    flags = torch.zeros(s_max, dtype=torch.bool, device=device)
+    flags[0] = done
+    return SegmentTable(start, size, flags)
+
+
+def _active_rows(table: SegmentTable) -> torch.Tensor:
+    return ~table.done & (table.size > 0)
+
+
+def table_any_active(table: SegmentTable) -> torch.Tensor:
+    """Device bool: some bucket of the table is still active."""
+    return _active_rows(table).any()
+
+
+def table_active(table: SegmentTable, n: int, a_max: int) -> tuple:
+    """``(asegs, rows)``: the active buckets' ``ActiveSegments`` (base and
+    size padded with ``n`` and 0; no per-key ``index`` or ``boundary``) and
+    the table row of each (s_max pad).  One scan over the table's rows."""
+    s_max = table.start.shape[0]
+    rows = static_nonzero(_active_rows(table), a_max, s_max)
+    found = rows < s_max
+    sel = torch.clamp(rows, max=s_max - 1).to(torch.int64)
+    base = torch.where(found, table.start[sel], n)
+    size = torch.where(found, table.size[sel], 0)
+    return ActiveSegments(base=base, size=size, index=None,
+                          boundary=None), rows
+
+
+def advance_table(table: SegmentTable, rows: torch.Tensor, gstart, gdone,
+                  dest_base, n: int) -> SegmentTable:
+    """The table after a counting pass, from the (a_max, r) tables alone.
+
+    A done bucket keeps its row.  Active bucket a (table row ``rows[a]``)
+    becomes one bucket per merged group (R3) it starts: for each v with
+    ``gstart[a, v]``, ``start = dest_base[a, v]`` and ``done = gdone[a, v]``.
+    R3 starts a group at a row's first non-empty sub-bucket and never at an
+    empty one, so the buckets still tile [0, n) and each size is the
+    distance to the next start.  A bucket's new row counts the done rows
+    and the groups before it: O(s_max + a_max·r), no sort, and no scatter
+    index twice (rows that write nothing go to their own slot past s_max).
+    """
+    s_max = table.start.shape[0]
+    a_max, r = gstart.shape
+    dev = table.start.device
+    slot = torch.arange(s_max, dtype=torch.int64, device=dev)
+    dump = slot + s_max
+    act = _active_rows(table).to(_I32)
+    before = (torch.cumsum(act, 0, dtype=_I32) - act).to(torch.int64)
+    groups = torch.cumsum(gstart.sum(1, dtype=_I32), 0, dtype=_I32)
+    gbefore = torch.cat([groups.new_zeros(1), groups])    # (a_max + 1,)
+    start = torch.full((2 * s_max,), n, dtype=_I32, device=dev)
+    done = torch.zeros(2 * s_max, dtype=torch.bool, device=dev)
+
+    # done row i: after the done rows and the groups of the active rows
+    # before it
+    dst = torch.where(table.done, slot - before + gbefore[before], dump)
+    start[dst] = table.start
+    done[dst] = table.done
+
+    # the j-th group start, in position order, of active bucket a: after
+    # the j groups before it and the rows[a] - a done rows before its bucket
+    flat = static_nonzero(gstart.reshape(-1), s_max, a_max * r)
+    found = flat < a_max * r
+    flat = torch.clamp(flat, max=a_max * r - 1).to(torch.int64)
+    a = flat // r
+    dst = torch.where(found, slot + rows[a].to(torch.int64) - a, dump)
+    start[dst] = dest_base.reshape(-1).to(_I32)[flat]
+    done[dst] = gdone.reshape(-1)[flat]
+
+    start = start[:s_max]
+    size = torch.cat([start[1:], start.new_full((1,), n)]) - start
+    return SegmentTable(start, size, done[:s_max])
 
 
 def max_region_blocks(n: int, kpb: int, a_max: int) -> int:
@@ -245,9 +346,10 @@ def _or_dump(idx: torch.Tensor, keep: torch.Tensor, end: int) -> torch.Tensor:
 
 def apply_pass_bookkeeping(seg_id, done, asegs: ActiveSegments, hist,
                            gstart, gdone, dest_base):
-    """Positional segment/done updates after a counting pass, from the
-    (A, r) tables alone: merged-group starts (R3) become the new bucket
-    boundaries, done groups are range-filled, done buckets persist."""
+    """Positional segment/done updates after a counting pass (the plain
+    engines' dense state), from the (A, r) tables alone: merged-group
+    starts (R3) become the new bucket boundaries, done groups are
+    range-filled, done buckets persist."""
     n = seg_id.shape[0]
     dev = seg_id.device
     nb = torch.zeros(n + _DUMP, dtype=torch.bool, device=dev)

@@ -35,8 +35,8 @@ import torch
 
 #: whole sorts a log keeps; the oldest go first
 MAX_SORTS = 64
-#: tallies one sort may take (a pass each, and the local sort's)
-COUNT_SLOTS = 128
+#: tallies one sort may take (two a pass, and the local sort's)
+COUNT_SLOTS = 256
 
 _OFF = contextlib.nullcontext()
 

@@ -1147,6 +1147,33 @@ def test_hybrid_sort_main_path_moves_leaves_in_the_kernel(dev):
     assert torch.equal(out_w, want.indices * 3)
 
 
+@pytest.mark.parametrize("ands", [0, 3])
+def test_hybrid_sort_holds_under_2_4x_its_input(dev, ands):
+    """A kernel-engine hybrid_sort of 2^24 uint32 pairs holds less than 2.4x
+    its input's bytes above what was held before it: the ping-pong buffers
+    (2x) and the plan's tables, which keep no per-key bucket state."""
+    from repro_torch import hybrid_sort
+    n = 1 << 24
+    gen = torch.Generator(device=dev).manual_seed(24 + ands)
+
+    def words():
+        return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    keys = words()
+    for _ in range(ands):
+        keys &= words()
+    keys, vals = keys.view(torch.uint32), words().view(torch.uint32)
+    hybrid_sort(keys, vals)                       # builds, warms the cache
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = hybrid_sort(keys, vals)
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated(dev) - before
+    assert out[0].shape == (n,)
+    assert held < 2.4 * 8 * n, held / (8 * n)
+
+
 # ---- the assigned histogram, redesigned (prologue tables, count_range) ----
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.uint16,

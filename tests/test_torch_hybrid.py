@@ -22,6 +22,7 @@ from repro.core import SortConfig as JConfig  # noqa: E402
 from repro.core import hybrid_sort as j_sort  # noqa: E402
 from repro_torch import hybrid_sort  # noqa: E402
 from repro_torch.core import hybrid as thybrid  # noqa: E402
+from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.core.interop import (config_from_reference,  # noqa: E402
                                       to_numpy, tree_flatten)
 from repro_torch.kernels import bitonic, fused  # noqa: E402
@@ -188,6 +189,38 @@ def test_kernel_engine_census_on_cpu(rng, monkeypatch):
     hybrid_sort(entropy_keys(rng, n, 0), cfg=pcfg, engine="kernel",
                 device="cpu")
     assert sorts == [length for length, _ in classes]
+
+
+@pytest.mark.parametrize("opts", [{}, {"max_passes": 1}, {"compress": True}],
+                         ids=["full", "max_passes_1", "compress"])
+@pytest.mark.parametrize("dtype", [np.uint32, np.int64, np.float32])
+def test_kernel_engine_keeps_no_per_key_bucket_state(rng, monkeypatch, dtype,
+                                                     opts):
+    """The kernel engine keeps its bucket state as a segment table: with
+    the dense per-key plan made to raise, its keys, values and stats equal
+    the ``argsort`` engine's.  Half the keys repeat 20 values (buckets that
+    stay active to the last digit, so ``max_passes=1`` leaves some
+    unfinished and unsorted)."""
+    x = _keys(rng, dtype, 3000)
+    x[:1500] = x[1500:][rng.integers(0, 20, 1500)]
+    vals = np.arange(x.size, dtype=np.int32)
+    pcfg = config_from_reference(dataclasses.asdict(TCFG))
+    want = hybrid_sort(x, vals, cfg=pcfg, engine="argsort",
+                       return_stats=True, device="cpu", **opts)
+
+    def dense(*args, **kw):
+        raise AssertionError("the kernel engine kept per-key bucket state")
+    monkeypatch.setattr(tplan, "active_segments", dense)
+    monkeypatch.setattr(tplan, "apply_pass_bookkeeping", dense)
+    got = hybrid_sort(x, vals, cfg=pcfg, engine="kernel", return_stats=True,
+                      device="cpu", **opts)
+    assert _as_bytes(got[0]) == _as_bytes(want[0])
+    assert _as_bytes(got[1]) == _as_bytes(want[1])
+    assert got[2] == want[2]
+    if "max_passes" in opts:                  # some buckets left unsorted
+        assert got[2].counting_passes == 1
+        full = hybrid_sort(x, cfg=pcfg, engine="kernel", device="cpu")
+        assert _as_bytes(got[0]) != _as_bytes(full)
 
 
 def test_engine_resolution():

@@ -176,6 +176,22 @@ def test_counts_equal_across_engines_and_an_independent_count(kind, opts,
     assert passes[0][2] == N
 
 
+@pytest.mark.parametrize("kind,opts", [
+    ("uniform", {}), ("and3", {}), ("middle", {}),
+    ("and3", {"max_passes": 2})])
+def test_segments_count_the_kernel_engines_table(kind, opts, rng):
+    """Each kernel-engine pass tallies the buckets of its segment table
+    after the pass: they never fall, and the last is the stats' count."""
+    x = _keys(kind, rng)
+    (_, st), sort, _, _ = _profiled(x, cfg=CFG, engine="kernel",
+                                    device="cpu", return_stats=True, **opts)
+    segs = [s["attrs"]["segments"] for s in sort
+            if s["name"] == "hybrid_sort.pass"]
+    assert len(segs) == st.counting_passes + st.elided_passes > 0
+    assert segs == sorted(segs) and segs[0] > 1
+    assert segs[-1] == st.num_segments
+
+
 def test_local_sort_records_when_few_buckets_are_done(rng):
     """Under truncation the local sort gets only the done buckets."""
     x = _keys("and3", rng)
